@@ -1,0 +1,180 @@
+"""Deformable DETR (counterpart of
+``aloception_tpu/models/deformable_detr/deformable_detr.py``).
+
+Multi-scale (4-level) input projections with GroupNorm, 300 queries from a
+2x-hidden embedding, sigmoid-focal classification, optional iterative box
+refinement through per-layer box heads wired into the decoder. Parameters
+carry the reference ``state_dict`` names (``backbone.0.body.*``,
+``input_proj.{l}.0/1``, ``query_embed.weight``, ``transformer.*``,
+``class_embed.{i}``, ``bbox_embed.{i}.layers.{j}``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..backbone.resnet import Backbone
+from ..transformers import MLP, position_embedding_sine
+from .deformable_transformer import DeformableTransformer, inverse_sigmoid
+from .ms_deform_attn import MSDeformAttn
+
+NUM_FEATURE_LEVELS = 4   # C3, C4, C5 and a stride-2 conv on C5
+
+
+class DeformableDETR(nn.Module):
+    def __init__(self, num_classes: int = 91, hidden_dim: int = 256,
+                 num_queries: int = 300, nheads: int = 8,
+                 num_encoder_layers: int = 6, num_decoder_layers: int = 6,
+                 dim_feedforward: int = 1024, n_points: int = 4,
+                 with_box_refine: bool = False,
+                 stage_sizes: Sequence[int] = (3, 4, 6, 3), device=None,
+                 generator: Optional[torch.Generator] = None):
+        """Parameters are drawn from ``generator`` (a fresh one seeded with 0
+        on ``device`` when None)."""
+        super().__init__()
+        self.hidden_dim = hidden_dim
+        self.num_decoder_layers = num_decoder_layers
+        self.backbone = nn.ModuleList([Backbone(
+            ("layer2", "layer3", "layer4"), stage_sizes, device=device)])
+        in_channels = (512, 1024, 2048)
+        self.input_proj = nn.ModuleList(
+            [nn.Sequential(nn.Conv2d(c, hidden_dim, 1, device=device),
+                           nn.GroupNorm(32, hidden_dim, device=device))
+             for c in in_channels]
+            + [nn.Sequential(nn.Conv2d(in_channels[-1], hidden_dim, 3,
+                                       stride=2, padding=1, device=device),
+                             nn.GroupNorm(32, hidden_dim, device=device))])
+        self.query_embed = nn.Embedding(num_queries, 2 * hidden_dim,
+                                        device=device)
+        self.transformer = DeformableTransformer(
+            hidden_dim, nheads, num_encoder_layers, num_decoder_layers,
+            dim_feedforward, NUM_FEATURE_LEVELS, n_points, device=device)
+
+        # heads: per-layer clones for refinement, else one module repeated
+        # (the reference's ModuleList of one shared module)
+        def class_head():
+            return nn.Linear(hidden_dim, num_classes, device=device)
+
+        def box_head():
+            return MLP(hidden_dim, hidden_dim, 4, 3, device=device)
+
+        if with_box_refine:
+            self.class_embed = nn.ModuleList(class_head()
+                                             for _ in range(num_decoder_layers))
+            self.bbox_embed = nn.ModuleList(box_head()
+                                            for _ in range(num_decoder_layers))
+            self.transformer.decoder.bbox_embed = self.bbox_embed
+        else:
+            c, b = class_head(), box_head()
+            self.class_embed = nn.ModuleList([c] * num_decoder_layers)
+            self.bbox_embed = nn.ModuleList([b] * num_decoder_layers)
+
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        init_parameters(self, generator)
+
+    def forward(self, images: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> Dict:
+        """images: (B, H, W, 3) normalised; mask: (B, H, W), 1 = padded.
+        Returns pred_logits (B, Nq, classes), pred_boxes (B, Nq, 4) as
+        relative (cx, cy, w, h) in float32, and the other decoder layers'
+        outputs under aux_outputs."""
+        dtype = self.query_embed.weight.dtype
+        feats = self.backbone[0](images.to(dtype), mask)
+        srcs, masks = [], []
+        for lvl, (f, m) in enumerate(feats):
+            srcs.append(self.input_proj[lvl](f.permute(0, 3, 1, 2)))
+            masks.append(m)
+        # extra level: stride-2 conv on C5
+        srcs.append(self.input_proj[-1](feats[-1][0].permute(0, 3, 1, 2)))
+        masks.append(F.interpolate(masks[-1][:, None], size=srcs[-1].shape[-2:],
+                                   mode="nearest-exact")[:, 0])
+        pos_embeds = [position_embedding_sine(
+            m, num_pos_feats=self.hidden_dim // 2, dtype=dtype) for m in masks]
+
+        hs, init_reference, inter_references, _, _, _ = self.transformer(
+            [s.permute(0, 2, 3, 1) for s in srcs], masks, pos_embeds,
+            self.query_embed.weight)
+
+        all_logits, all_boxes = [], []
+        for lvl in range(self.num_decoder_layers):
+            ref = init_reference if lvl == 0 else inter_references[lvl - 1]
+            logits = self.class_embed[lvl](hs[lvl])
+            delta = self.bbox_embed[lvl](hs[lvl]).float()
+            if ref.shape[-1] == 4:
+                boxes = torch.sigmoid(delta + inverse_sigmoid(ref))
+            else:
+                xy = torch.sigmoid(delta[..., :2] + inverse_sigmoid(ref))
+                boxes = torch.cat([xy, torch.sigmoid(delta[..., 2:])], -1)
+            all_logits.append(logits)
+            all_boxes.append(boxes)
+
+        return {"pred_logits": all_logits[-1], "pred_boxes": all_boxes[-1],
+                "aux_outputs": [{"pred_logits": l, "pred_boxes": b}
+                                for l, b in zip(all_logits[:-1],
+                                                all_boxes[:-1])]}
+
+
+@torch.no_grad()
+def init_parameters(model: nn.Module, generator: torch.Generator):
+    """Random init from one explicit generator: LeCun-normal conv and linear
+    kernels (flax's default), zero biases, unit norms, N(0, 1) embeddings,
+    Xavier-uniform packed attention projections; MSDeformAttn then zeroes its
+    offset and weight kernels and grid-initialises its offset bias."""
+    for m in model.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            fan_in = m.weight[0].numel()
+            m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(m, nn.MultiheadAttention):
+            bound = math.sqrt(6.0 / (m.in_proj_weight.shape[0] // 3
+                                     + m.in_proj_weight.shape[1]))
+            m.in_proj_weight.uniform_(-bound, bound, generator=generator)
+            m.in_proj_bias.zero_()
+    for m in model.modules():
+        if isinstance(m, DeformableTransformer):
+            m.level_embed.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(m, MSDeformAttn):
+            m.reset_offsets()
+
+
+def deformable_detr_r50(num_classes: int = 91, with_box_refine: bool = False,
+                        dtype: torch.dtype = torch.float32, device=None,
+                        generator: Optional[torch.Generator] = None,
+                        **kwargs) -> DeformableDETR:
+    """Deformable-DETR-R50 (± box refinement) in eval mode, its parameters in
+    ``dtype`` except the reference-point projection, which stays float32 as
+    in the JAX package; 4-d parameters get channels_last strides."""
+    model = DeformableDETR(num_classes=num_classes,
+                           with_box_refine=with_box_refine, device=device,
+                           generator=generator, **kwargs)
+    model.to(dtype=dtype, memory_format=torch.channels_last)
+    model.transformer.reference_points.float()
+    return model.eval()
+
+
+def inference(m_outputs: Dict, threshold: float = 0.2) -> List[Dict]:
+    """Sigmoid-focal inference: score = max sigmoid(logit) over classes, keep
+    score > threshold. Returns, per image, {"boxes": (K, 4) relative (cx, cy,
+    w, h), "labels": (K,) int64, "scores": (K,)}: the arrays the JAX
+    ``inference`` wraps into BoundingBoxes2D and Labels."""
+    probs = m_outputs["pred_logits"].float().sigmoid()
+    scores, labels = probs.max(-1)
+    boxes = m_outputs["pred_boxes"].float()
+    out = []
+    for b in range(probs.shape[0]):
+        keep = scores[b] > threshold
+        out.append({"boxes": boxes[b][keep], "labels": labels[b][keep],
+                    "scores": scores[b][keep]})
+    return out

@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels (sources in ``aloception_tpu_torch/csrc``), each
+built at first use and bound with ctypes.
+
+- ms_deform_attn_kernel.ms_deform_attn_cuda: MSDA forward; replaces the TPU
+  kernel ``ms_deform_attn_pallas``.
+"""
+
+from .ms_deform_attn_kernel import ms_deform_attn_cuda  # noqa: F401

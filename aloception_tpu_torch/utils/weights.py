@@ -1,0 +1,177 @@
+"""JAX-package parameters -> this package's ``state_dict``.
+
+Exact inverses of the torch -> flax converters of
+``aloception_tpu/utils/weights.py`` (``convert_resnet50_backbone``,
+``convert_mha``, ``convert_deformable_checkpoint``): each takes flax params as
+nested dicts of numpy arrays and returns float tensors under the reference
+torch names, so a model of the JAX package can be loaded into its port with
+``load_state_dict(strict=True)``. Layer and block counts are read from the
+params.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _conv(sd: StateDict, name: str, p: Mapping[str, Any]):
+    """flax Conv (kH, kW, I, O) -> torch Conv2d (O, I, kH, kW)."""
+    sd[name + ".weight"] = _t(np.transpose(p["kernel"], (3, 2, 0, 1)))
+    if "bias" in p:
+        sd[name + ".bias"] = _t(p["bias"])
+
+
+def _dense(sd: StateDict, name: str, p: Mapping[str, Any]):
+    """flax Dense kernel (I, O) -> torch Linear weight (O, I)."""
+    sd[name + ".weight"] = _t(np.transpose(p["kernel"]))
+    sd[name + ".bias"] = _t(p["bias"])
+
+
+def _norm(sd: StateDict, name: str, p: Mapping[str, Any]):
+    sd[name + ".weight"] = _t(p["scale"])
+    sd[name + ".bias"] = _t(p["bias"])
+
+
+def _frozen_bn(sd: StateDict, name: str, p: Mapping[str, Any]):
+    _norm(sd, name, p)
+    sd[name + ".running_mean"] = _t(p["mean"])
+    sd[name + ".running_var"] = _t(p["var"])
+
+
+def s2d_stem_to_7x7(w4: np.ndarray) -> np.ndarray:
+    """Invert ``conv1_to_s2d_kernel``: a (4, 4, 4C, O) space-to-depth stem
+    kernel back to the (7, 7, C, O) kernel of the 7x7/2 stem, by
+    w8[2a+p, 2b+q, c] = w4[a, b, (2p+q)*C + c] and w7 = w8[1:8, 1:8]. Raises
+    if w8's first row or column, which no 7x7 kernel fills, is not zero."""
+    w4 = np.asarray(w4)
+    C, O = w4.shape[2] // 4, w4.shape[3]
+    w8 = np.zeros((8, 8, C, O), w4.dtype)
+    for p in range(2):
+        for q in range(2):
+            w8[p::2, q::2] = w4[:, :, (2 * p + q) * C:(2 * p + q + 1) * C]
+    if w8[0].any() or w8[:, 0].any():
+        raise ValueError("space-to-depth stem kernel has weights outside the "
+                         "7x7 window; it has no 7x7/2 equivalent")
+    return w8[1:, 1:]
+
+
+def backbone_state_dict_from_jax(params: Mapping[str, Any],
+                                 prefix: str = "body.") -> StateDict:
+    """flax ``Backbone`` params ({"trunk": ...}) -> ``Backbone`` state_dict
+    (``prefix`` + ``conv1.weight``, ``layer1.0.conv1.weight`` ...). A
+    space-to-depth stem is mapped back to 7x7."""
+    trunk = params["trunk"]
+    sd: StateDict = {}
+    conv1 = np.asarray(trunk["conv1"]["kernel"])
+    if conv1.shape[:2] == (4, 4):
+        conv1 = s2d_stem_to_7x7(conv1)
+    _conv(sd, prefix + "conv1", {"kernel": conv1})
+    _frozen_bn(sd, prefix + "bn1", trunk["bn1"])
+    for key, block in trunk.items():
+        m = re.fullmatch(r"layer(\d+)_block(\d+)", key)
+        if m is None:
+            continue
+        name = f"{prefix}layer{m.group(1)}.{m.group(2)}."
+        for ci in (1, 2, 3):
+            _conv(sd, f"{name}conv{ci}", block[f"conv{ci}"])
+            _frozen_bn(sd, f"{name}bn{ci}", block[f"bn{ci}"])
+        if "downsample_conv" in block:
+            _conv(sd, name + "downsample.0", block["downsample_conv"])
+            _frozen_bn(sd, name + "downsample.1", block["downsample_bn"])
+    return sd
+
+
+def mha_state_dict_from_jax(p: Mapping[str, Any], prefix: str) -> StateDict:
+    """flax MultiHeadDotProductAttention {query, key, value, out} ->
+    ``nn.MultiheadAttention`` (packed ``in_proj_weight``/``in_proj_bias``,
+    ``out_proj``)."""
+    d = np.shape(p["query"]["kernel"])[0]
+    return {
+        prefix + "in_proj_weight": _t(np.concatenate(
+            [np.reshape(p[n]["kernel"], (d, -1)).T
+             for n in ("query", "key", "value")], 0)),
+        prefix + "in_proj_bias": _t(np.concatenate(
+            [np.reshape(p[n]["bias"], -1) for n in ("query", "key", "value")])),
+        prefix + "out_proj.weight": _t(np.reshape(p["out"]["kernel"], (-1, d)).T),
+        prefix + "out_proj.bias": _t(p["out"]["bias"]),
+    }
+
+
+def msdeform_attn_state_dict_from_jax(p: Mapping[str, Any],
+                                      prefix: str = "") -> StateDict:
+    sd: StateDict = {}
+    for name in ("sampling_offsets", "attention_weights", "value_proj",
+                 "output_proj"):
+        _dense(sd, prefix + name, p[name])
+    return sd
+
+
+def transformer_state_dict_from_jax(p: Mapping[str, Any],
+                                    prefix: str = "") -> StateDict:
+    """flax ``DeformableTransformer`` params -> ``DeformableTransformer``
+    state_dict (without the decoder's box heads, which the model adds)."""
+    sd: StateDict = {prefix + "level_embed": _t(p["level_embed"])}
+    _dense(sd, prefix + "reference_points", p["reference_points"])
+    for key, layer in p.items():
+        m = re.fullmatch(r"(encoder|decoder)_layer(\d+)", key)
+        if m is None:
+            continue
+        name = f"{prefix}{m.group(1)}.layers.{m.group(2)}."
+        for norm in ("norm1", "norm2", "norm3"):
+            if norm in layer:
+                _norm(sd, name + norm, layer[norm])
+        _dense(sd, name + "linear1", layer["linear1"])
+        _dense(sd, name + "linear2", layer["linear2"])
+        if m.group(1) == "encoder":
+            sd.update(msdeform_attn_state_dict_from_jax(layer["self_attn"],
+                                                        name + "self_attn."))
+        else:
+            sd.update(msdeform_attn_state_dict_from_jax(layer["cross_attn"],
+                                                        name + "cross_attn."))
+            sd.update(mha_state_dict_from_jax(layer["self_attn"],
+                                              name + "self_attn."))
+    return sd
+
+
+def deformable_state_dict_from_jax(params: Mapping[str, Any],
+                                   with_box_refine: bool) -> StateDict:
+    """flax ``DeformableDETR`` variables ({"params": ...}, or the params
+    alone) -> ``DeformableDETR`` state_dict under the reference names.
+
+    Without refinement the reference's ``class_embed.{i}``/``bbox_embed.{i}``
+    are one module repeated per decoder layer, so head 0 is written under
+    every index; with refinement each layer has its own heads, which the
+    decoder also holds as ``transformer.decoder.bbox_embed``."""
+    params = params.get("params", params)
+    sd = backbone_state_dict_from_jax(params["backbone"], "backbone.0.body.")
+    lvl = 0
+    while f"input_proj{lvl}" in params:
+        _conv(sd, f"input_proj.{lvl}.0", params[f"input_proj{lvl}"])
+        _norm(sd, f"input_proj.{lvl}.1", params[f"input_proj_gn{lvl}"])
+        lvl += 1
+    sd["query_embed.weight"] = _t(params["query_embed"])
+    sd.update(transformer_state_dict_from_jax(params["transformer"],
+                                              "transformer."))
+
+    num_dec = sum(1 for k in params["transformer"]
+                  if k.startswith("decoder_layer"))
+    for i in range(num_dec):
+        head = i if with_box_refine else 0
+        _dense(sd, f"class_embed.{i}", params[f"class_embed{head}"])
+        mlp = params[f"bbox_embed{head}"]
+        for j in range(len(mlp)):
+            _dense(sd, f"bbox_embed.{i}.layers.{j}", mlp[f"layer{j}"])
+            if with_box_refine:
+                _dense(sd, f"transformer.decoder.bbox_embed.{i}.layers.{j}",
+                       mlp[f"layer{j}"])
+    return sd

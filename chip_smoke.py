@@ -1,0 +1,352 @@
+"""Smoke run of the PyTorch port (``aloception_tpu_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+1. Builds the MSDA CUDA kernel from ``aloception_tpu_torch/csrc`` and holds
+   it against its plain PyTorch version on the card, in float32 and bfloat16,
+   at the encoder and decoder shapes of Deformable-DETR-R50 at 640 px, at a
+   small odd shape and with locations outside the levels; times both.
+2. Drives the main path at full width: Deformable-DETR-R50 with box
+   refinement (random weights from a seeded generator, bfloat16) answers 3
+   requests of 16 uint8 480x640 images through ``fused_preprocess`` (to
+   640x640), the forward and ``inference``, and must launch the kernel 12
+   times per forward. In float32 at batch 2 the model on the kernel path must
+   agree with the same model on the plain path, with the offset and weight
+   kernels of every MSDeformAttn drawn at random so that sampling depends on
+   the query. Then it times the forward at batch 16 (the configuration
+   ``bench.py::bench_deformable`` measures).
+3. Profiles 3 steady batch-16 forwards with ``torch.profiler``
+   (device time by aten op and by kernel, device activities and busy time per
+   forward, the device's idle share), and the synchronising operations of one
+   forward under ``torch.cuda.set_sync_debug_mode``.
+
+Prints the card's name and power limit, one JSON line describing the kernel,
+and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
+is then not 0 and no result line is printed. Needs a CUDA card; never
+imports JAX.
+"""
+
+import json
+import subprocess
+import sys
+import time
+import warnings
+from unittest import mock
+
+import torch
+
+LEVELS_640 = ((80, 80), (40, 40), (20, 20), (10, 10))
+NH, C, P = 8, 32, 4
+# name: (level shapes, B, Lq, C, location range)
+KERNEL_CASES = {
+    "encoder": (LEVELS_640, 2, 8500, C, (0.0, 1.0)),
+    "decoder": (LEVELS_640, 16, 300, C, (0.0, 1.0)),
+    "odd": (((1, 5), (2, 2), (3, 7)), 2, 37, 16, (0.0, 1.0)),
+    "out_of_bounds": (LEVELS_640, 2, 300, C, (-0.2, 1.2)),
+}
+# the main path's call shapes at batch 16, timed in bfloat16
+TIMED_SHAPES = {"encoder": (16, 8500), "decoder": (16, 300)}
+BATCH, RAW_HW, SIZE = 16, (480, 640), (640, 640)
+N_REQUESTS = 3
+MSDA_CALLS_PER_FORWARD = 12      # 6 encoder + 6 decoder layers
+
+
+def msda_inputs(shapes, B, Lq, channels, loc_range, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    L = len(shapes)
+    len_v = sum(h * w for h, w in shapes)
+    lo, hi = loc_range
+    value = torch.randn(B, len_v, NH, channels, device=device, generator=g)
+    loc = lo + (hi - lo) * torch.rand(B, Lq, NH, L, P, 2, device=device,
+                                      generator=g)
+    w = torch.rand(B, Lq, NH, L, P, device=device, generator=g)
+    w = w / w.sum((3, 4), keepdim=True)
+    return value.to(dtype), shapes, loc.to(dtype), w.to(dtype)
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Mean milliseconds of ``fn`` on the current stream, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_phase(device):
+    from aloception_tpu_torch.ops.cuda import ms_deform_attn_cuda
+    from aloception_tpu_torch.ops.ms_deform_attn import ms_deform_attn_torch
+
+    errs = {}
+    for name, (shapes, B, Lq, channels, loc_range) in KERNEL_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            args = msda_inputs(shapes, B, Lq, channels, loc_range, dtype,
+                               device)
+            got = ms_deform_attn_cuda(*args)
+            torch.cuda.synchronize()
+            want = ms_deform_attn_torch(*args)
+            err = (got.float() - want.float()).abs().max().item()
+            # float32: summation order only; bfloat16: the output is rounded
+            tol = 1e-5 if dtype == torch.float32 else \
+                2e-2 * want.float().abs().max().item()
+            tag = f"{name}/{str(dtype).split('.')[-1]}"
+            print(f"msda {tag}: B={B} Lq={Lq} C={channels} "
+                  f"max|kernel-plain|={err:.3e} (tol {tol:.3e})")
+            if not err <= tol:
+                raise AssertionError(f"msda kernel disagrees at {tag}: "
+                                     f"{err} > {tol}")
+            errs[tag] = err
+
+    times = {}
+    for site, (B, Lq) in TIMED_SHAPES.items():
+        args = msda_inputs(LEVELS_640, B, Lq, C, (0.0, 1.0), torch.bfloat16,
+                           device)
+        ms = cuda_ms(lambda: ms_deform_attn_cuda(*args))
+        plain_ms = cuda_ms(lambda: ms_deform_attn_torch(*args), iters=5)
+        times[site] = (ms, plain_ms)
+        print(f"msda {site} B={B} Lq={Lq} bf16: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms")
+    return errs, times
+
+
+def slice_phase(device):
+    from aloception_tpu_torch.models.deformable_detr import (
+        deformable_detr_r50, inference)
+    from aloception_tpu_torch.models.deformable_detr import ms_deform_attn \
+        as msda_module
+    from aloception_tpu_torch.ops.cuda import ms_deform_attn_cuda
+    from aloception_tpu_torch.ops.ms_deform_attn import ms_deform_attn_torch
+    from aloception_tpu_torch.ops.preprocess import fused_preprocess
+
+    def model(dtype):
+        return deformable_detr_r50(
+            num_classes=91, with_box_refine=True, dtype=dtype, device=device,
+            generator=torch.Generator(device=device).manual_seed(0))
+
+    host = torch.Generator().manual_seed(1)
+
+    def raw_batch(n):
+        return torch.randint(0, 256, (n,) + RAW_HW + (3,), dtype=torch.uint8,
+                             generator=host)
+
+    # float32, batch 2: the kernel path against the plain path, one model.
+    # Init zeroes the offset and weight kernels (every query would sample the
+    # same points with uniform weights): draw them instead.
+    m32 = model(torch.float32)
+    g = torch.Generator(device=device).manual_seed(2)
+    with torch.no_grad():
+        for mod in m32.modules():
+            if isinstance(mod, msda_module.MSDeformAttn):
+                mod.sampling_offsets.weight.normal_(0.0, 0.1, generator=g)
+                mod.attention_weights.weight.normal_(0.0, 0.1, generator=g)
+    with torch.inference_mode():
+        x, mask = fused_preprocess(raw_batch(2).to(device), out_size=SIZE,
+                                   dtype=torch.float32)
+        out_k = m32(x, mask)
+        with mock.patch.object(msda_module, "ms_deform_attn",
+                               ms_deform_attn_torch):
+            out_p = m32(x, mask)
+    parity = max((out_k[k] - out_p[k]).abs().max().item()
+                 for k in ("pred_logits", "pred_boxes"))
+    print(f"slice fp32 bs2: max|kernel path - plain path| = {parity:.3e} "
+          "(tol 1e-3)")
+    if not parity <= 1e-3:
+        raise AssertionError(f"kernel path and plain path disagree: {parity}")
+    del m32, out_k, out_p
+
+    # the main path: bfloat16 requests of uint8 images
+    m16 = model(torch.bfloat16)
+    requests = [raw_batch(BATCH) for _ in range(N_REQUESTS)]
+    torch.cuda.synchronize()
+    ms_deform_attn_cuda.launches = 0
+    latencies, results = [], []
+    for raw in requests:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            x, mask = fused_preprocess(raw.to(device), out_size=SIZE)
+            out = m16(x, mask)
+            dets = inference(out)
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t0)
+        results.append((out, dets))
+    launches = ms_deform_attn_cuda.launches
+
+    for out, dets in results:
+        logits, boxes = out["pred_logits"].float(), out["pred_boxes"]
+        if logits.shape != (BATCH, 300, 91) or boxes.shape != (BATCH, 300, 4):
+            raise AssertionError(f"bad shapes {logits.shape} {boxes.shape}")
+        if not (logits.isfinite().all() and boxes.isfinite().all()):
+            raise AssertionError("non-finite model outputs")
+        if not (boxes.min() >= 0 and boxes.max() <= 1):
+            raise AssertionError("boxes outside [0, 1]")
+        if len(dets) != BATCH or any(
+                d["boxes"].shape != (len(d["scores"]), 4)
+                or len(d["labels"]) != len(d["scores"])
+                or bool((d["scores"] <= 0.2).any()) for d in dets):
+            raise AssertionError("malformed inference output")
+    n_dets = [sum(len(d["scores"]) for d in dets) for _, dets in results]
+    if launches != MSDA_CALLS_PER_FORWARD * N_REQUESTS:
+        raise AssertionError(f"msda kernel launched {launches} times in "
+                             f"{N_REQUESTS} forwards")
+    print(f"requests: {N_REQUESTS} x bs{BATCH} uint8 {RAW_HW} -> {SIZE} bf16, "
+          f"latency s {[round(t, 4) for t in latencies]}, detections "
+          f"{n_dets}, msda launches {launches}")
+
+    # forward throughput, the bench_deformable configuration
+    x = torch.randn(BATCH, *SIZE, 3, device=device).to(torch.bfloat16)
+    mask = torch.zeros(BATCH, *SIZE, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: m16(x, mask), iters=10, warmup=2)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"deformable_detr_r50_refine bs{BATCH} {SIZE[0]}px bf16: forward "
+          f"{fwd_ms:.2f} ms, {BATCH / fwd_ms * 1e3:.2f} images/s, peak "
+          f"memory {peak_gib:.2f} GiB")
+    profile_phase(m16, x, mask)
+    return launches, parity
+
+
+def _device_us(avg, self_only=False):
+    """Device microseconds of a profiler average row (the attribute's name
+    differs between PyTorch versions)."""
+    prefix = "self_" if self_only else ""
+    for name in (f"{prefix}device_time_total", f"{prefix}cuda_time_total"):
+        if hasattr(avg, name):
+            return getattr(avg, name)
+    raise AttributeError("profiler rows carry no device time")
+
+
+def _trace(model, x, mask, activities, n_fwd):
+    from torch.profiler import profile
+    with torch.inference_mode(), profile(activities=activities) as prof:
+        for _ in range(n_fwd):
+            model(x, mask)
+        torch.cuda.synchronize()
+    return prof
+
+
+def _device_busy(prof):
+    """(device activities, busy us, window us): kernels and copies as
+    intervals on the device clock, their union, first start to last end."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the profiler recorded no device activity")
+    busy, cur_start, cur_end = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = s, e
+        else:
+            cur_end = max(cur_end, e)
+    busy += cur_end - cur_start
+    return len(spans), busy, spans[-1][1] - spans[0][0]
+
+
+def profile_phase(model, x, mask, n_fwd=3):
+    from torch.profiler import ProfilerActivity
+
+    with torch.inference_mode():
+        for _ in range(2):
+            model(x, mask)
+    # the idle share from a device-only trace: tracing host ops slows the
+    # host, and with it the device's feed
+    n_act, busy, window = _device_busy(
+        _trace(model, x, mask, [ProfilerActivity.CUDA], n_fwd))
+    prof = _trace(model, x, mask,
+                  [ProfilerActivity.CPU, ProfilerActivity.CUDA], n_fwd)
+    _, busy_host, window_host = _device_busy(prof)
+    print(f"profile {n_fwd} forwards: {n_act / n_fwd:.1f} device activities "
+          f"and {busy / n_fwd / 1e3:.3f} ms device-busy per forward; idle "
+          f"share of the device window {1 - busy / window:.4f} (device-only "
+          f"trace), {1 - busy_host / window_host:.4f} (with host ops traced)")
+
+    # shares are of the device-busy time of the traced forwards
+    rows = prof.key_averages()
+    aten = sorted((r for r in rows if r.key.startswith("aten::")),
+                  key=_device_us, reverse=True)[:15]
+    kernels = sorted((r for r in rows if _device_us(r, self_only=True) > 0
+                      and not r.key.startswith("aten::")),
+                     key=lambda r: _device_us(r, self_only=True),
+                     reverse=True)[:15]
+    print("device ms per forward by aten op (children included; nested ops "
+          "overlap):")
+    for r in aten:
+        us = _device_us(r)
+        print(f"  {us / n_fwd / 1e3:8.3f} ms {us / busy_host:6.1%} "
+              f"{r.count // n_fwd:5d} calls  {r.key}")
+    print("device ms per forward by kernel (self):")
+    for r in kernels:
+        us = _device_us(r, self_only=True)
+        print(f"  {us / n_fwd / 1e3:8.3f} ms {us / busy_host:6.1%} "
+              f"{r.count // n_fwd:5d} calls  {r.key[:100]}")
+
+    # blocking host syncs of one forward (the mode warns once, when it is
+    # set, that it is a prototype; that notice is not counted)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                torch.inference_mode():
+            warnings.simplefilter("always")
+            model(x, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    print(f"sync-debug: {len(caught)} warnings in one forward, of which "
+          f"{len(syncs)} report a synchronizing CUDA operation")
+    for s in syncs[:5]:
+        print(f"  {s[:200]}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA card: "
+                         "torch.cuda.is_available() is False")
+    from aloception_tpu_torch.ops.cuda.build import load_library
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+
+    t0 = time.perf_counter()
+    load_library("ms_deform_attn")
+    print(f"built ms_deform_attn.cu in {time.perf_counter() - t0:.1f} s")
+
+    errs, times = kernel_phase(device)
+    launches, parity = slice_phase(device)
+
+    enc_ms, enc_plain = times["encoder"]
+    dec_ms, dec_plain = times["decoder"]
+    print(json.dumps({"kernels": [{
+        "name": "ms_deform_attn",
+        "route": "cuda",
+        "source": "aloception_tpu_torch/csrc/ms_deform_attn.cu",
+        "replaces": "aloception_tpu/ops/pallas/ms_deform_attn_kernel.py:245",
+        "launches": launches,
+        "max_abs_err": max(v for k, v in errs.items() if k.endswith("float32")),
+        "max_abs_err_bf16": max(v for k, v in errs.items()
+                                if k.endswith("bfloat16")),
+        "ms": enc_ms, "plain_ms": enc_plain,
+        "decoder_ms": dec_ms, "decoder_plain_ms": dec_plain,
+        "slice_fp32_parity": parity,
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,30 @@
+"""The PyTorch port stands alone: no module of ``aloception_tpu_torch``
+imports jax, flax or the JAX package, directly or inside a function."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+PKG = Path(__file__).resolve().parents[1] / "aloception_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "aloception_tpu")
+SOURCES = sorted(PKG.rglob("*.py"))
+
+
+def _imported_roots(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_has_sources():
+    assert len(SOURCES) >= 10
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PKG)))
+def test_no_jax_import(path):
+    roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))
+    assert not roots & set(FORBIDDEN), f"{path} imports {roots & set(FORBIDDEN)}"

@@ -1,0 +1,34 @@
+"""Shared helpers of the ``test_torch_*`` parity tests: the JAX package on
+the CPU against its PyTorch port, on inputs and parameters drawn with numpy."""
+
+import numpy as np
+import jax
+import torch
+
+
+def perturb(tree, rng: np.random.RandomState):
+    """Numpy copy of a flax param tree with every leaf moved by noise, so that
+    zero-initialised kernels (MSDA offsets and weights) and unit norms play a
+    part in the comparison. Variances stay positive."""
+    def move(path, x):
+        x = np.asarray(x, np.float32)
+        name = getattr(path[-1], "key", None)
+        if name == "var":
+            return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
+        if name == "scale":
+            return (1.0 + 0.1 * rng.randn(*x.shape)).astype(np.float32)
+        std = float(x.std()) if x.size > 1 else 0.0
+        return (x + 0.5 * (std or 0.05) * rng.randn(*x.shape)).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(move, tree)
+
+
+def t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def close(got: torch.Tensor, want, atol: float):
+    got = got.detach().float().numpy()
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    err = float(np.abs(got - want).max())
+    assert err <= atol, f"max |diff| {err} > {atol}"
