@@ -11,15 +11,16 @@ carry the reference ``state_dict`` names (``backbone.0.body.*``,
 
 from __future__ import annotations
 
-import math
 from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...aloscene import BoundingBoxes2D
 from ..backbone.resnet import Backbone
-from ..transformers import MLP, position_embedding_sine
+from ..detr.detr import boxes_per_image
+from ..transformers import MLP, init_parameters, position_embedding_sine
 from .deformable_transformer import DeformableTransformer, inverse_sigmoid
 from .ms_deform_attn import MSDeformAttn
 
@@ -76,7 +77,7 @@ class DeformableDETR(nn.Module):
 
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        init_parameters(self, generator)
+        _init_parameters(self, generator)
 
     def forward(self, images: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> Dict:
@@ -95,7 +96,8 @@ class DeformableDETR(nn.Module):
         masks.append(F.interpolate(masks[-1][:, None], size=srcs[-1].shape[-2:],
                                    mode="nearest-exact")[:, 0])
         pos_embeds = [position_embedding_sine(
-            m, num_pos_feats=self.hidden_dim // 2, dtype=dtype) for m in masks]
+            m, num_pos_feats=self.hidden_dim // 2, center=True, dtype=dtype)
+            for m in masks]
 
         hs, init_reference, inter_references, _, _, _ = self.transformer(
             [s.permute(0, 2, 3, 1) for s in srcs], masks, pos_embeds,
@@ -121,31 +123,14 @@ class DeformableDETR(nn.Module):
 
 
 @torch.no_grad()
-def init_parameters(model: nn.Module, generator: torch.Generator):
-    """Random init from one explicit generator: LeCun-normal conv and linear
-    kernels (flax's default), zero biases, unit norms, N(0, 1) embeddings,
-    Xavier-uniform packed attention projections; MSDeformAttn then zeroes its
-    offset and weight kernels and grid-initialises its offset bias."""
+def _init_parameters(model: "DeformableDETR", generator: torch.Generator):
+    """The shared random init, then Deformable-DETR's own: N(0, 1) level
+    embeddings; every MSDeformAttn zeroes its offset and weight kernels and
+    grid-initialises its offset bias."""
+    init_parameters(model, generator)
+    model.transformer.level_embed.normal_(0.0, 1.0, generator=generator)
     for m in model.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
-            fan_in = m.weight[0].numel()
-            m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
-        elif isinstance(m, nn.Embedding):
-            m.weight.normal_(0.0, 1.0, generator=generator)
-        elif isinstance(m, nn.MultiheadAttention):
-            bound = math.sqrt(6.0 / (m.in_proj_weight.shape[0] // 3
-                                     + m.in_proj_weight.shape[1]))
-            m.in_proj_weight.uniform_(-bound, bound, generator=generator)
-            m.in_proj_bias.zero_()
-    for m in model.modules():
-        if isinstance(m, DeformableTransformer):
-            m.level_embed.normal_(0.0, 1.0, generator=generator)
-        elif isinstance(m, MSDeformAttn):
+        if isinstance(m, MSDeformAttn):
             m.reset_offsets()
 
 
@@ -164,17 +149,11 @@ def deformable_detr_r50(num_classes: int = 91, with_box_refine: bool = False,
     return model.eval()
 
 
-def inference(m_outputs: Dict, threshold: float = 0.2) -> List[Dict]:
+def inference(m_outputs: Dict, threshold: float = 0.2
+              ) -> List[BoundingBoxes2D]:
     """Sigmoid-focal inference: score = max sigmoid(logit) over classes, keep
-    score > threshold. Returns, per image, {"boxes": (K, 4) relative (cx, cy,
-    w, h), "labels": (K,) int64, "scores": (K,)}: the arrays the JAX
-    ``inference`` wraps into BoundingBoxes2D and Labels."""
-    probs = m_outputs["pred_logits"].float().sigmoid()
-    scores, labels = probs.max(-1)
-    boxes = m_outputs["pred_boxes"].float()
-    out = []
-    for b in range(probs.shape[0]):
-        keep = scores[b] > threshold
-        out.append({"boxes": boxes[b][keep], "labels": labels[b][keep],
-                    "scores": scores[b][keep]})
-    return out
+    score > threshold. Returns per image relative (cx, cy, w, h)
+    ``BoundingBoxes2D`` with float32 ``Labels`` carrying the scores."""
+    scores, labels = m_outputs["pred_logits"].float().sigmoid().max(-1)
+    return boxes_per_image(m_outputs["pred_boxes"], labels, scores,
+                           scores > threshold)

@@ -1,0 +1,134 @@
+"""DETR encoder-decoder transformer (counterpart of
+``aloception_tpu/models/detr/transformer.py``).
+
+Post-norm, batch-first (B, L, C). Positional embeddings are added to queries
+and keys only, never to values; the learned queries are added at every
+decoder layer, whose target starts at zeros; the decoder returns every
+layer's output after the shared final LayerNorm. Attention is
+``nn.MultiheadAttention`` without weights, so it runs
+``scaled_dot_product_attention``. Modules carry the reference ``state_dict``
+names (``encoder.layers.{i}``, ``decoder.layers.{i}.multihead_attn``,
+``decoder.norm``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# flax nn.LayerNorm's default epsilon, which the JAX package uses
+LN_EPS = 1e-6
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, d_model: int = 256, nheads: int = 8,
+                 dim_feedforward: int = 2048, device=None):
+        super().__init__()
+        self.self_attn = nn.MultiheadAttention(d_model, nheads,
+                                               batch_first=True, device=device)
+        self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
+        self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
+        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+
+    def forward(self, src: torch.Tensor, pos: torch.Tensor,
+                key_padding_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """src, pos: (B, L, C); key_padding_mask: (B, L) bool, True =
+        padded (ignored as a key)."""
+        q = k = src + pos
+        src2 = self.self_attn(q, k, src, key_padding_mask=key_padding_mask,
+                              need_weights=False)[0]
+        src = self.norm1(src + src2)
+        src2 = self.linear2(F.relu(self.linear1(src)))
+        return self.norm2(src + src2)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, d_model: int = 256, nheads: int = 8,
+                 dim_feedforward: int = 2048, device=None):
+        super().__init__()
+        self.self_attn = nn.MultiheadAttention(d_model, nheads,
+                                               batch_first=True, device=device)
+        self.multihead_attn = nn.MultiheadAttention(
+            d_model, nheads, batch_first=True, device=device)
+        self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
+        self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
+        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
+                pos: torch.Tensor, query_pos: torch.Tensor,
+                key_padding_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """tgt, query_pos: (B, Nq, C); memory, pos: (B, L, C);
+        key_padding_mask: (B, L) bool, True = padded."""
+        q = k = tgt + query_pos
+        tgt2 = self.self_attn(q, k, tgt, need_weights=False)[0]
+        tgt = self.norm1(tgt + tgt2)
+        tgt2 = self.multihead_attn(tgt + query_pos, memory + pos, memory,
+                                   key_padding_mask=key_padding_mask,
+                                   need_weights=False)[0]
+        tgt = self.norm2(tgt + tgt2)
+        tgt2 = self.linear2(F.relu(self.linear1(tgt)))
+        return self.norm3(tgt + tgt2)
+
+
+class TransformerEncoder(nn.Module):
+    def __init__(self, num_layers: int, **layer_kwargs):
+        super().__init__()
+        self.layers = nn.ModuleList(EncoderLayer(**layer_kwargs)
+                                    for _ in range(num_layers))
+
+    def forward(self, src, pos, key_padding_mask=None):
+        for layer in self.layers:
+            src = layer(src, pos, key_padding_mask)
+        return src
+
+
+class TransformerDecoder(nn.Module):
+    def __init__(self, num_layers: int, d_model: int = 256, device=None,
+                 **layer_kwargs):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            DecoderLayer(d_model=d_model, device=device, **layer_kwargs)
+            for _ in range(num_layers))
+        self.norm = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+
+    def forward(self, tgt, memory, pos, query_pos, key_padding_mask=None):
+        intermediates = []
+        for layer in self.layers:
+            tgt = layer(tgt, memory, pos, query_pos, key_padding_mask)
+            intermediates.append(self.norm(tgt))
+        return torch.stack(intermediates)
+
+
+class Transformer(nn.Module):
+    def __init__(self, d_model: int = 256, nheads: int = 8,
+                 num_encoder_layers: int = 6, num_decoder_layers: int = 6,
+                 dim_feedforward: int = 2048, device=None):
+        super().__init__()
+        layer_kwargs = dict(d_model=d_model, nheads=nheads,
+                            dim_feedforward=dim_feedforward, device=device)
+        self.encoder = TransformerEncoder(num_encoder_layers, **layer_kwargs)
+        self.decoder = TransformerDecoder(num_decoder_layers, **layer_kwargs)
+
+    def forward(self, src: torch.Tensor, pos: torch.Tensor,
+                query_embed: torch.Tensor,
+                key_padding_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """src, pos: (B, L, C) flattened features and their positions;
+        query_embed: (Nq, C) learned queries; key_padding_mask: (B, L),
+        1 = padded. Returns (decoder outputs (layers, B, Nq, C), encoder
+        memory (B, L, C))."""
+        if key_padding_mask is not None:
+            key_padding_mask = key_padding_mask >= 0.5
+        memory = self.encoder(src, pos, key_padding_mask)
+        query_pos = query_embed[None].expand(src.shape[0], -1, -1)
+        tgt = torch.zeros_like(query_pos)
+        hs = self.decoder(tgt, memory, pos, query_pos, key_padding_mask)
+        return hs, memory

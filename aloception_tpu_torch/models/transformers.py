@@ -5,6 +5,7 @@
   ``layers.{j}``.
 - position_embedding_sine: 2-D sine positional encoding computed from the
   *non-padded* area of the padding mask via cumulative sums.
+- init_parameters: the detectors' random init from one explicit generator.
 """
 
 from __future__ import annotations
@@ -37,14 +38,18 @@ class MLP(nn.Module):
 
 
 def position_embedding_sine(mask: torch.Tensor, num_pos_feats: int = 64,
+                            center: bool = False,
                             dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """mask: (B, H, W), 1 = PADDED. Returns (B, H, W, 2 * num_pos_feats),
     channels last, computed in float32 and cast to ``dtype``. Positions are
-    centred (cumsum - 0.5) and normalised to [0, 2*pi]: Deformable-DETR's
-    variant (the JAX function with ``center=True``)."""
+    normalised to [0, 2*pi]; ``center`` moves them to pixel centres
+    (cumsum - 0.5), as Deformable-DETR does; DETR does not."""
     not_mask = 1.0 - mask.float()
-    y_embed = not_mask.cumsum(1) - 0.5
-    x_embed = not_mask.cumsum(2) - 0.5
+    y_embed = not_mask.cumsum(1)
+    x_embed = not_mask.cumsum(2)
+    if center:
+        y_embed = y_embed - 0.5
+        x_embed = x_embed - 0.5
     y_embed = y_embed / (y_embed[:, -1:, :] + EPS) * SCALE
     x_embed = x_embed / (x_embed[:, :, -1:] + EPS) * SCALE
 
@@ -58,3 +63,26 @@ def position_embedding_sine(mask: torch.Tensor, num_pos_feats: int = 64,
     pos_y = torch.stack([pos_y[..., 0::2].sin(), pos_y[..., 1::2].cos()],
                         dim=-1).flatten(-2)
     return torch.cat([pos_y, pos_x], dim=-1).to(dtype)
+
+
+@torch.no_grad()
+def init_parameters(model: nn.Module, generator: torch.Generator):
+    """Random init from one explicit generator: LeCun-normal conv and linear
+    kernels (flax's default), zero biases, unit norms, N(0, 1) embeddings,
+    Xavier-uniform packed attention projections."""
+    for m in model.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            fan_in = m.weight[0].numel()
+            m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(m, nn.MultiheadAttention):
+            bound = math.sqrt(6.0 / (m.in_proj_weight.shape[0] // 3
+                                     + m.in_proj_weight.shape[1]))
+            m.in_proj_weight.uniform_(-bound, bound, generator=generator)
+            m.in_proj_bias.zero_()

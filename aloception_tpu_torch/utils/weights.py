@@ -2,7 +2,8 @@
 
 Exact inverses of the torch -> flax converters of
 ``aloception_tpu/utils/weights.py`` (``convert_resnet50_backbone``,
-``convert_mha``, ``convert_deformable_checkpoint``): each takes flax params as
+``convert_mha``, ``convert_detr_checkpoint``,
+``convert_deformable_checkpoint``): each takes flax params as
 nested dicts of numpy arrays and returns float tensors under the reference
 torch names, so a model of the JAX package can be loaded into its port with
 ``load_state_dict(strict=True)``. Layer and block counts are read from the
@@ -174,4 +175,42 @@ def deformable_state_dict_from_jax(params: Mapping[str, Any],
             if with_box_refine:
                 _dense(sd, f"transformer.decoder.bbox_embed.{i}.layers.{j}",
                        mlp[f"layer{j}"])
+    return sd
+
+
+def detr_layer_state_dict_from_jax(layer: Mapping[str, Any],
+                                   prefix: str = "") -> StateDict:
+    """flax DETR ``EncoderLayer``/``DecoderLayer`` params -> the layer's
+    state_dict. The decoder's flax ``cross_attn`` is the reference's
+    ``multihead_attn``."""
+    sd = mha_state_dict_from_jax(layer["self_attn"], prefix + "self_attn.")
+    if "cross_attn" in layer:
+        sd.update(mha_state_dict_from_jax(layer["cross_attn"],
+                                          prefix + "multihead_attn."))
+    for norm in ("norm1", "norm2", "norm3"):
+        if norm in layer:
+            _norm(sd, prefix + norm, layer[norm])
+    _dense(sd, prefix + "linear1", layer["linear1"])
+    _dense(sd, prefix + "linear2", layer["linear2"])
+    return sd
+
+
+def detr_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """flax ``Detr`` variables ({"params": ...}, or the params alone) ->
+    ``Detr`` state_dict under the reference names."""
+    params = params.get("params", params)
+    sd = backbone_state_dict_from_jax(params["backbone"], "backbone.0.body.")
+    _conv(sd, "input_proj", params["input_proj"])
+    sd["query_embed.weight"] = _t(params["query_embed"])
+    tr = params["transformer"]
+    for key, layer in tr.items():
+        m = re.fullmatch(r"(encoder|decoder)_layer(\d+)", key)
+        if m is not None:
+            sd.update(detr_layer_state_dict_from_jax(
+                layer, f"transformer.{m.group(1)}.layers.{m.group(2)}."))
+    _norm(sd, "transformer.decoder.norm", tr["decoder_norm"])
+    _dense(sd, "class_embed", params["class_embed"])
+    mlp = params["bbox_embed"]
+    for j in range(len(mlp)):
+        _dense(sd, f"bbox_embed.layers.{j}", mlp[f"layer{j}"])
     return sd

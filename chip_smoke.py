@@ -19,6 +19,17 @@
    (device time by aten op and by kernel, device activities and busy time per
    forward, the device's idle share), and the synchronising operations of one
    forward under ``torch.cuda.set_sync_debug_mode``.
+4. The Frame path, as a user of ``aloscene`` calls it: uint8 CHW frames of
+   mixed sizes on the card -> ``Frame`` -> ``norm_resnet`` -> ``resize``
+   (longer side 640) -> ``batch_list(size=(640, 640))`` -> forward ->
+   ``inference`` (per-image ``BoundingBoxes2D`` with ``Labels``):
+   - one bs16 Deformable-DETR request, which must launch the kernel 12 times;
+   - DETR-R50 in float32 at batch 2 on the card against the same model on
+     the CPU, on a padded batch;
+   - DETR-R50 (91 classes, 100 queries, 6+6 layers, bfloat16) answers 3
+     requests of 32 frames; the synchronising operations of one request.
+5. Times the DETR-R50 forward at batch 32, 640x640 (the configuration
+   ``bench.py::bench_detr`` measures) and profiles it as in 3.
 
 Prints the card's name and power limit, one JSON line describing the kernel,
 and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
@@ -26,6 +37,7 @@ is then not 0 and no result line is printed. Needs a CUDA card; never
 imports JAX.
 """
 
+import copy
 import json
 import subprocess
 import sys
@@ -49,6 +61,11 @@ TIMED_SHAPES = {"encoder": (16, 8500), "decoder": (16, 300)}
 BATCH, RAW_HW, SIZE = 16, (480, 640), (640, 640)
 N_REQUESTS = 3
 MSDA_CALLS_PER_FORWARD = 12      # 6 encoder + 6 decoder layers
+# DETR-R50: the bench_detr batch; Frame-path frame sizes (H, W) are drawn
+# from these ranges
+DETR_BATCH = 32
+FRAME_H, FRAME_W = (360, 640), (480, 640)
+DETR_CLASSES = 91                # + the background class
 
 
 def msda_inputs(shapes, B, Lq, channels, loc_range, dtype, device, seed=0):
@@ -184,12 +201,10 @@ def slice_phase(device):
             raise AssertionError("non-finite model outputs")
         if not (boxes.min() >= 0 and boxes.max() <= 1):
             raise AssertionError("boxes outside [0, 1]")
-        if len(dets) != BATCH or any(
-                d["boxes"].shape != (len(d["scores"]), 4)
-                or len(d["labels"]) != len(d["scores"])
-                or bool((d["scores"] <= 0.2).any()) for d in dets):
-            raise AssertionError("malformed inference output")
-    n_dets = [sum(len(d["scores"]) for d in dets) for _, dets in results]
+        check_detections(dets, BATCH)
+        if any(bool((d.labels.scores <= 0.2).any()) for d in dets):
+            raise AssertionError("a detection at or under the threshold")
+    n_dets = [sum(len(d) for d in dets) for _, dets in results]
     if launches != MSDA_CALLS_PER_FORWARD * N_REQUESTS:
         raise AssertionError(f"msda kernel launched {launches} times in "
                              f"{N_REQUESTS} forwards")
@@ -208,7 +223,180 @@ def slice_phase(device):
           f"{fwd_ms:.2f} ms, {BATCH / fwd_ms * 1e3:.2f} images/s, peak "
           f"memory {peak_gib:.2f} GiB")
     profile_phase(m16, x, mask)
-    return launches, parity
+    return launches, parity, m16
+
+
+def random_frames(n, device, seed):
+    """``n`` uint8 CHW images made on the card, each of a size drawn from
+    FRAME_H x FRAME_W."""
+    host = torch.Generator().manual_seed(seed)
+    g = torch.Generator(device=device).manual_seed(seed)
+    sizes = [(int(torch.randint(FRAME_H[0], FRAME_H[1] + 1, (), generator=host)),
+              int(torch.randint(FRAME_W[0], FRAME_W[1] + 1, (), generator=host)))
+             for _ in range(n)]
+    return [torch.randint(0, 256, (3, h, w), dtype=torch.uint8, device=device,
+                          generator=g) for h, w in sizes]
+
+
+def frame_batch(images):
+    """Frame -> norm_resnet -> resize (longer side SIZE[0], aspect kept) ->
+    batch_list(size=SIZE)."""
+    from aloception_tpu_torch.aloscene import Frame, batch_list
+    frames = []
+    for x in images:
+        f = Frame(x).norm_resnet()
+        scale = SIZE[0] / max(f.HW)
+        frames.append(f.resize((round(f.H * scale), round(f.W * scale))))
+    return batch_list(frames, size=SIZE)
+
+
+def frame_request(model, images, infer):
+    """One request down the Frame path; returns (batch, outputs,
+    detections)."""
+    batch = frame_batch(images)
+    out = model(batch.as_layout(("B", "H", "W", "C")), batch.mask.array[:, 0])
+    return batch, out, infer(out)
+
+
+def check_detections(dets, n, background=None):
+    """``n`` relative xcyc BoundingBoxes2D, each with Labels carrying scores,
+    finite boxes in [0, 1] and no background label."""
+    from aloception_tpu_torch.aloscene import BoundingBoxes2D, Labels
+    if len(dets) != n:
+        raise AssertionError(f"{len(dets)} detection sets for {n} images")
+    for d in dets:
+        labels = d.get_child("labels")
+        if not (isinstance(d, BoundingBoxes2D) and isinstance(labels, Labels)
+                and labels.scores is not None
+                and d.boxes_format == "xcyc" and not d.absolute):
+            raise AssertionError(f"malformed detections {d!r}")
+        b = d.array
+        if b.shape != (len(labels), 4) or labels.scores.shape != (len(b),):
+            raise AssertionError(f"shapes {b.shape} {labels.scores.shape}")
+        if len(b) and not (b.isfinite().all() and b.min() >= 0
+                           and b.max() <= 1):
+            raise AssertionError("boxes not finite or outside [0, 1]")
+        if background is not None and bool((labels.array == background).any()):
+            raise AssertionError("a detection of the background class")
+    return sum(len(d) for d in dets)
+
+
+def syncs_of(fn):
+    """(synchronising CUDA operations reported while ``fn`` runs, their
+    messages). The mode warns once, when it is set, that it is a prototype;
+    that notice is raised outside and not counted."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return [str(w.message) for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def deformable_frame_phase(m16, device):
+    """One bs16 request down the Frame path; the kernel must run 12 times."""
+    from aloception_tpu_torch.models.deformable_detr import inference
+    from aloception_tpu_torch.ops.cuda import ms_deform_attn_cuda
+
+    images = random_frames(BATCH, device, seed=3)
+    torch.cuda.synchronize()
+    ms_deform_attn_cuda.launches = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        batch, _, dets = frame_request(m16, images, inference)
+    torch.cuda.synchronize()
+    latency = time.perf_counter() - t0
+    launches = ms_deform_attn_cuda.launches
+    n_dets = check_detections(dets, BATCH)
+    if launches != MSDA_CALLS_PER_FORWARD:
+        raise AssertionError(f"msda kernel launched {launches} times in one "
+                             "Frame-path forward")
+    print(f"deformable Frame path: bs{BATCH} mixed-size uint8 frames -> "
+          f"{SIZE} bf16, latency {latency:.4f} s, detections {n_dets}, "
+          f"mask padded share {batch.mask.array.mean().item():.4f}, msda "
+          f"launches {launches}")
+    return launches
+
+
+def detr_parity_phase(device):
+    """DETR-R50 fp32 at batch 2 on a padded batch: the card against the CPU,
+    one model."""
+    from aloception_tpu_torch.models.detr import detr_r50
+
+    cpu_model = detr_r50(dtype=torch.float32, device="cpu",
+                         generator=torch.Generator().manual_seed(4))
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    g = torch.Generator().manual_seed(5)
+    images = [torch.randint(0, 256, (3,) + hw, dtype=torch.uint8, generator=g)
+              for hw in ((480, 640), (640, 427))]
+    batch = frame_batch(images)
+    layout = ("B", "H", "W", "C")
+    with torch.inference_mode():
+        want = cpu_model(batch.as_layout(layout), batch.mask.array[:, 0])
+        gb = batch.to(device)
+        got = gpu_model(gb.as_layout(layout), gb.mask.array[:, 0])
+    err = max((got[k].cpu() - want[k]).abs().max().item()
+              for k in ("pred_logits", "pred_boxes"))
+    padded = batch.mask.array.mean().item()
+    print(f"detr fp32 bs2 card vs cpu on a padded batch (padded share "
+          f"{padded:.4f}): max|diff| = {err:.3e} (tol 1e-3)")
+    if not (err <= 1e-3 and padded > 0):
+        raise AssertionError(f"detr on the card disagrees with the cpu: {err}")
+    return err
+
+
+def detr_phase(device):
+    """DETR-R50 bf16: 3 Frame-path requests of DETR_BATCH frames, the
+    synchronising operations of one request, then the bs32 forward's time
+    and profile."""
+    from aloception_tpu_torch.models.detr import detr_r50, inference
+
+    model = detr_r50(num_classes=DETR_CLASSES, dtype=torch.bfloat16,
+                     device=device,
+                     generator=torch.Generator(device=device).manual_seed(0))
+    requests = [random_frames(DETR_BATCH, device, seed=10 + i)
+                for i in range(N_REQUESTS)]
+    torch.cuda.synchronize()
+    latencies, results = [], []
+    for images in requests:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            results.append(frame_request(model, images, inference))
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t0)
+    n_dets = []
+    for batch, out, dets in results:
+        if not (out["pred_logits"].shape == (DETR_BATCH, 100, DETR_CLASSES + 1)
+                and out["pred_logits"].isfinite().all()):
+            raise AssertionError("bad or non-finite detr logits")
+        if not batch.mask.array.sum() > 0:
+            raise AssertionError("the batch mask is empty")
+        n_dets.append(check_detections(dets, DETR_BATCH,
+                                       background=DETR_CLASSES))
+    with torch.inference_mode():
+        syncs = syncs_of(lambda: frame_request(model, requests[0], inference))
+    print(f"detr Frame path: {N_REQUESTS} x bs{DETR_BATCH} mixed-size uint8 "
+          f"frames -> {SIZE} bf16, latency s "
+          f"{[round(t, 4) for t in latencies]}, detections {n_dets}; "
+          f"synchronising operations in one request: {len(syncs)}")
+    for msg in syncs[:5]:
+        print(f"  {msg[:200]}")
+
+    # forward throughput, the bench_detr configuration
+    x = torch.randn(DETR_BATCH, *SIZE, 3, device=device).to(torch.bfloat16)
+    mask = torch.zeros(DETR_BATCH, *SIZE, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model(x, mask), iters=10, warmup=2)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"detr_r50 bs{DETR_BATCH} {SIZE[0]}px bf16: forward {fwd_ms:.2f} "
+          f"ms, {DETR_BATCH / fwd_ms * 1e3:.2f} images/s, peak memory "
+          f"{peak_gib:.2f} GiB")
+    profile_phase(model, x, mask)
+    return latencies, fwd_ms
 
 
 def _device_us(avg, self_only=False):
@@ -287,20 +475,10 @@ def profile_phase(model, x, mask, n_fwd=3):
         print(f"  {us / n_fwd / 1e3:8.3f} ms {us / busy_host:6.1%} "
               f"{r.count // n_fwd:5d} calls  {r.key[:100]}")
 
-    # blocking host syncs of one forward (the mode warns once, when it is
-    # set, that it is a prototype; that notice is not counted)
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught, \
-                torch.inference_mode():
-            warnings.simplefilter("always")
-            model(x, mask)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    syncs = [str(w.message) for w in caught
-             if "called a synchronizing CUDA operation" in str(w.message)]
-    print(f"sync-debug: {len(caught)} warnings in one forward, of which "
-          f"{len(syncs)} report a synchronizing CUDA operation")
+    with torch.inference_mode():
+        syncs = syncs_of(lambda: model(x, mask))
+    print(f"sync-debug: {len(syncs)} synchronising CUDA operations in one "
+          "forward")
     for s in syncs[:5]:
         print(f"  {s[:200]}")
 
@@ -326,7 +504,11 @@ def main():
     print(f"built ms_deform_attn.cu in {time.perf_counter() - t0:.1f} s")
 
     errs, times = kernel_phase(device)
-    launches, parity = slice_phase(device)
+    launches, parity, m16 = slice_phase(device)
+    frame_launches = deformable_frame_phase(m16, device)
+    del m16
+    detr_parity_phase(device)
+    detr_phase(device)
 
     enc_ms, enc_plain = times["encoder"]
     dec_ms, dec_plain = times["decoder"]
@@ -335,7 +517,9 @@ def main():
         "route": "cuda",
         "source": "aloception_tpu_torch/csrc/ms_deform_attn.cu",
         "replaces": "aloception_tpu/ops/pallas/ms_deform_attn_kernel.py:245",
-        "launches": launches,
+        "launches": launches + frame_launches,
+        "launches_by_path": {"fused_preprocess": launches,
+                             "frame": frame_launches},
         "max_abs_err": max(v for k, v in errs.items() if k.endswith("float32")),
         "max_abs_err_bf16": max(v for k, v in errs.items()
                                 if k.endswith("bfloat16")),

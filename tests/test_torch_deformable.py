@@ -43,14 +43,16 @@ def _level_masks(rng, B):
 
 @pytest.mark.parametrize("level", range(len(SHAPES)))
 def test_position_embedding_matches_jax(level):
-    """The port's sine embedding is the JAX function's centred variant."""
+    """The port's centred sine embedding (Deformable-DETR's) is the JAX
+    function's."""
     from aloception_tpu.models.transformers import position_embedding_sine
     from aloception_tpu_torch.models.transformers import (
         position_embedding_sine as port_embedding)
     mask = _level_masks(np.random.RandomState(level), 2)[level]
     want = position_embedding_sine(jnp.asarray(mask), num_pos_feats=D // 2,
                                    center=True)
-    close(port_embedding(t(mask), num_pos_feats=D // 2), want, 1e-5)
+    close(port_embedding(t(mask), num_pos_feats=D // 2, center=True), want,
+          1e-5)
 
 
 @pytest.mark.parametrize("ref_dim", [2, 4])
@@ -144,9 +146,10 @@ def test_model_matches_flax(with_box_refine):
     threshold = float(scores[gap] + scores[gap + 1]) / 2
     want_inf = jdd.inference(want, threshold=threshold)
     got_inf = tdd.inference(got, threshold=threshold)
-    assert sum(len(g["scores"]) for g in got_inf) == len(scores) - gap - 1
+    assert sum(len(g) for g in got_inf) == len(scores) - gap - 1
     for g, w in zip(got_inf, want_inf):
         labels = w.get_child("labels")
-        close(g["boxes"], w.as_numpy(), 1e-4)
-        assert np.array_equal(g["labels"].numpy(), labels.as_numpy())
-        close(g["scores"], labels.scores, 1e-4)
+        assert (g.boxes_format, g.absolute) == ("xcyc", False)
+        close(g.array, w.as_numpy(), 1e-4)
+        assert np.array_equal(g.labels.array.numpy(), labels.as_numpy())
+        close(g.labels.scores, labels.scores, 1e-4)

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of ``aloception_tpu_torch``
-imports jax, flax or the JAX package, directly or inside a function."""
+imports jax, flax, the JAX package or OpenCV (which the card machine lacks),
+directly or inside a function."""
 
 import ast
 from pathlib import Path
@@ -7,7 +8,7 @@ from pathlib import Path
 import pytest
 
 PKG = Path(__file__).resolve().parents[1] / "aloception_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "aloception_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "aloception_tpu", "cv2")
 SOURCES = sorted(PKG.rglob("*.py"))
 
 

@@ -1,9 +1,10 @@
-"""``deformable_state_dict_from_jax`` is the exact inverse of the JAX
-package's torch -> flax converter: JAX params -> port state_dict ->
-``convert_deformable_checkpoint`` gives back the same params, bit for bit, and
-the state_dict loads strictly into the port's model. Full ResNet-50 stages
-(the converter's), a narrow transformer; params drawn with numpy over the
-JAX model's shapes."""
+"""``deformable_state_dict_from_jax`` and ``detr_state_dict_from_jax`` are
+the exact inverses of the JAX package's torch -> flax converters: JAX params
+-> port state_dict -> ``convert_deformable_checkpoint`` /
+``convert_detr_checkpoint`` gives back the same params, bit for bit, and the
+state_dict loads strictly into the port's model. Full ResNet-50 stages (the
+converters'), a narrow transformer; params drawn with numpy over the JAX
+model's shapes."""
 
 import numpy as np
 import pytest
@@ -13,18 +14,20 @@ import jax.numpy as jnp
 
 from aloception_tpu.models.backbone.resnet import conv1_to_s2d_kernel
 from aloception_tpu.models.deformable_detr import DeformableDETR as JaxDETR
-from aloception_tpu.utils.weights import convert_deformable_checkpoint
+from aloception_tpu.models.detr import Detr as JaxDetr
+from aloception_tpu.utils.weights import (convert_deformable_checkpoint,
+                                          convert_detr_checkpoint)
 from aloception_tpu_torch.models.deformable_detr import DeformableDETR
+from aloception_tpu_torch.models.detr import Detr
 from aloception_tpu_torch.utils.weights import (deformable_state_dict_from_jax,
+                                                detr_state_dict_from_jax,
                                                 s2d_stem_to_7x7)
 
 SMALL = dict(num_classes=10, hidden_dim=64, num_queries=20, nheads=4,
              num_encoder_layers=2, num_decoder_layers=3, dim_feedforward=128)
 
 
-def _random_params(with_box_refine, space_to_depth, rng):
-    model = JaxDETR(with_box_refine=with_box_refine,
-                    space_to_depth=space_to_depth, **SMALL)
+def _random_params(model, space_to_depth, rng):
     shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
                             jnp.zeros((1, 64, 64, 3)))["params"]
     params = jax.tree_util.tree_map(
@@ -41,7 +44,9 @@ def _random_params(with_box_refine, space_to_depth, rng):
 def test_round_trip_through_jax_converter_is_exact(with_box_refine,
                                                    space_to_depth):
     rng = np.random.RandomState(0)
-    params = _random_params(with_box_refine, space_to_depth, rng)
+    params = _random_params(JaxDETR(with_box_refine=with_box_refine,
+                                    space_to_depth=space_to_depth, **SMALL),
+                            space_to_depth, rng)
     sd = deformable_state_dict_from_jax({"params": params}, with_box_refine)
 
     back = convert_deformable_checkpoint(
@@ -56,6 +61,28 @@ def test_round_trip_through_jax_converter_is_exact(with_box_refine,
             jax.tree_util.keystr(k)
 
     port = DeformableDETR(with_box_refine=with_box_refine, **SMALL)
+    port.load_state_dict(sd, strict=True)
+    assert set(port.state_dict()) == set(sd)
+
+
+@pytest.mark.parametrize("space_to_depth", [True, False])
+def test_detr_round_trip_through_jax_converter_is_exact(space_to_depth):
+    rng = np.random.RandomState(1)
+    params = _random_params(JaxDetr(space_to_depth=space_to_depth, **SMALL),
+                            space_to_depth, rng)
+    sd = detr_state_dict_from_jax({"params": params})
+
+    back = convert_detr_checkpoint(
+        {k: v.numpy() for k, v in sd.items()}, d_model=64, nheads=4,
+        num_enc=2, num_dec=3, space_to_depth=space_to_depth)["params"]
+    want = dict(jax.tree_util.tree_leaves_with_path(params))
+    got = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert got.keys() == want.keys()
+    for k in want:
+        assert np.array_equal(np.asarray(got[k]), want[k]), \
+            jax.tree_util.keystr(k)
+
+    port = Detr(**SMALL)
     port.load_state_dict(sd, strict=True)
     assert set(port.state_dict()) == set(sd)
 

@@ -32,3 +32,12 @@ def close(got: torch.Tensor, want, atol: float):
     assert got.shape == want.shape, (got.shape, want.shape)
     err = float(np.abs(got - want).max())
     assert err <= atol, f"max |diff| {err} > {atol}"
+
+
+def with_7x7_stem(backbone_params, rng: np.random.RandomState):
+    """Give a flax space-to-depth stem the kernel of a random 7x7 one: only
+    such kernels have a 7x7 form in the port."""
+    from aloception_tpu.models.backbone.resnet import conv1_to_s2d_kernel
+    w7 = (rng.randn(7, 7, 3, 64) / np.sqrt(147)).astype(np.float32)
+    backbone_params["trunk"]["conv1"]["kernel"] = np.asarray(
+        conv1_to_s2d_kernel(w7))
