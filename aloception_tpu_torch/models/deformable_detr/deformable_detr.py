@@ -20,7 +20,8 @@ from torch import nn
 from ...aloscene import BoundingBoxes2D
 from ..backbone.resnet import Backbone
 from ..detr.detr import boxes_per_image
-from ..transformers import MLP, init_parameters, position_embedding_sine
+from ..transformers import (MLP, entry_device, init_parameters,
+                            position_embedding_sine)
 from .deformable_transformer import DeformableTransformer, inverse_sigmoid
 from .ms_deform_attn import MSDeformAttn
 
@@ -140,9 +141,12 @@ def deformable_detr_r50(num_classes: int = 91, with_box_refine: bool = False,
                         **kwargs) -> DeformableDETR:
     """Deformable-DETR-R50 (± box refinement) in eval mode, its parameters in
     ``dtype`` except the reference-point projection, which stays float32 as
-    in the JAX package; 4-d parameters get channels_last strides."""
+    in the JAX package; 4-d parameters get channels_last strides. It builds
+    on the CUDA card unless ``device`` names another (``device="cpu"``); with
+    no device and no card it raises."""
     model = DeformableDETR(num_classes=num_classes,
-                           with_box_refine=with_box_refine, device=device,
+                           with_box_refine=with_box_refine,
+                           device=entry_device(device),
                            generator=generator, **kwargs)
     model.to(dtype=dtype, memory_format=torch.channels_last)
     model.transformer.reference_points.float()

@@ -21,7 +21,8 @@ from torch import nn
 
 from ...aloscene import BoundingBoxes2D, Labels
 from ..backbone.resnet import Backbone
-from ..transformers import MLP, init_parameters, position_embedding_sine
+from ..transformers import (MLP, entry_device, init_parameters,
+                            position_embedding_sine)
 from .transformer import Transformer
 
 
@@ -81,8 +82,10 @@ def detr_r50(num_classes: int = 91, aux_loss: bool = True,
              dtype: torch.dtype = torch.float32, device=None,
              generator: Optional[torch.Generator] = None, **kwargs) -> Detr:
     """DETR-R50 in eval mode, its parameters in ``dtype``; 4-d parameters get
-    channels_last strides."""
-    model = Detr(num_classes=num_classes, aux_loss=aux_loss, device=device,
+    channels_last strides. It builds on the CUDA card unless ``device`` names
+    another (``device="cpu"``); with no device and no card it raises."""
+    model = Detr(num_classes=num_classes, aux_loss=aux_loss,
+                 device=entry_device(device),
                  generator=generator, **kwargs)
     model.to(dtype=dtype, memory_format=torch.channels_last)
     return model.eval()

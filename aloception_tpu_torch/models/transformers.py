@@ -65,6 +65,18 @@ def position_embedding_sine(mask: torch.Tensor, num_pos_feats: int = 64,
     return torch.cat([pos_y, pos_x], dim=-1).to(dtype)
 
 
+def entry_device(device) -> torch.device:
+    """The device a model factory builds on: ``device``, or the CUDA card
+    when it is None. Without a card, None raises: the CPU is only taken when
+    the caller names it."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError('no CUDA card: pass device="cpu" to build the '
+                               'model on the CPU')
+        device = "cuda"
+    return torch.device(device)
+
+
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator):
     """Random init from one explicit generator: LeCun-normal conv and linear

@@ -232,3 +232,18 @@ def test_frame_slice_matches_jax(detector, detr_pair):
         got_dets = tdd.inference(got)
     same_detections(got_dets, want_dets, 1e-4)
     assert sum(len(g) for g in got_dets) > 0
+
+
+@pytest.mark.parametrize("factory", ["detr_r50", "deformable_detr_r50"])
+def test_factory_builds_on_the_card_or_raises(factory):
+    """With no device the factories build on the CUDA card; without a card
+    they raise and point at device="cpu", which builds on the CPU."""
+    build = getattr(tdetr if factory == "detr_r50" else tdd, factory)
+    small = {k: v for k, v in SMALL.items() if k != "num_classes"}
+    if torch.cuda.is_available():
+        assert next(build(**small).parameters()).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build(**small)
+    model = build(device="cpu", **small)
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
