@@ -1,0 +1,114 @@
+"""Train DETR or Deformable-DETR on COCO (counterpart of
+``aloception_tpu/commands/train_on_coco.py``).
+
+Examples
+--------
+python -m aloception_tpu_torch.commands.train_on_coco --cpu --sample --tiny --fast_dev_run
+python -m aloception_tpu_torch.commands.train_on_coco --model deformable --sample \
+    --batch_size 8 --size 640 640 --max_steps 100
+
+Runs on the CUDA card, or on the CPU with ``--cpu``; without a card and
+without ``--cpu`` it raises. Only the offline synthetic sample (``--sample``)
+is ported; COCO on disk and ``--multiscale`` wait in ROADMAP A10.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+# flags of the JAX command that the port does not take yet, with their
+# ROADMAP item
+NOT_PORTED = {"multiscale": "A10", "bf16": "A6", "log": "A6", "tp": "A12",
+              "multihost": "A12"}
+
+
+def add_argparse_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    p.add_argument("--model", default="detr",
+                   choices=["detr", "deformable", "panoptic",
+                            "panoptic_deformable"])
+    p.add_argument("--sample", action="store_true",
+                   help="use the offline synthetic COCO sample")
+    p.add_argument("--batch_size", type=int, default=2)
+    p.add_argument("--max_epochs", type=int, default=1)
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--fast_dev_run", action="store_true",
+                   help="2 train batches + 1 val batch")
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--size", type=int, nargs=2, default=(480, 640))
+    p.add_argument("--project", default=None)
+    p.add_argument("--expe_name", default="coco")
+    p.add_argument("--run_id", default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--log_dir", default=None,
+                   help="experiment root (default ~/.aloception_tpu/"
+                        "experiments via the alonet config)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--cpu", action="store_true", help="train on the CPU")
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny model for smoke runs")
+    p.add_argument("--multiscale", action="store_true")
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--log", default=None)
+    p.add_argument("--tp", type=int, default=None)
+    p.add_argument("--multihost", action="store_true")
+    return p
+
+
+def main(argv=None):
+    args = add_argparse_args(argparse.ArgumentParser(__doc__)).parse_args(argv)
+    for flag, item in NOT_PORTED.items():
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag} is not ported yet (ROADMAP {item})")
+    if args.model.startswith("panoptic"):
+        raise NotImplementedError(
+            f"--model {args.model}: panoptic training is not ported yet "
+            "(ROADMAP A8)")
+    from aloception_tpu_torch.models.transformers import entry_device
+    from aloception_tpu_torch.train import (
+        CocoDetection2Detr, MetricsCallback, make_deformable_detr_trainer,
+        make_detr_trainer)
+
+    device = entry_device("cpu" if args.cpu else None)
+    dm = CocoDetection2Detr(batch_size=args.batch_size, sample=args.sample,
+                            size=tuple(args.size), seed=args.seed)
+    kwargs = dict(data_module=dm, run_id=args.run_id,
+                  expe_name=args.expe_name, device=device, seed=args.seed,
+                  callbacks=[MetricsCallback()])
+    if args.project:
+        kwargs["project"] = args.project
+    if args.log_dir:
+        kwargs["log_dir"] = args.log_dir
+    if args.lr:
+        kwargs["lr"] = args.lr
+    if args.fast_dev_run:
+        kwargs["limit_train_batches"] = 2
+        kwargs["limit_val_batches"] = 1
+        args.max_epochs = 1
+
+    n_cls = len(dm.label_names)
+    if args.tiny:
+        tiny = dict(num_classes=n_cls, hidden_dim=64, num_queries=20,
+                    nheads=4, num_encoder_layers=2, num_decoder_layers=2,
+                    dim_feedforward=128, stage_sizes=(1, 1, 1, 1),
+                    device=device)
+        if args.model == "detr":
+            from aloception_tpu_torch.models.detr import Detr
+            kwargs["model"] = Detr(**tiny)
+        else:
+            from aloception_tpu_torch.models.deformable_detr import (
+                DeformableDETR)
+            kwargs["model"] = DeformableDETR(with_box_refine=True, **tiny)
+    make = make_detr_trainer if args.model == "detr" \
+        else make_deformable_detr_trainer
+    trainer = make(**kwargs)
+    trainer.fit(dm.train_dataloader(), dm.val_dataloader(),
+                max_epochs=args.max_epochs, max_steps=args.max_steps,
+                resume=args.resume)
+    print(f"[train_on_coco] done: step={trainer.global_step} "
+          f"val={trainer.last_val_metrics} ckpt={trainer.ckpt_dir}")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -1,1 +1,1 @@
-"""Model zoo (PyTorch): DETR and Deformable-DETR inference so far."""
+"""Model zoo (PyTorch): DETR and Deformable-DETR, inference and training."""

@@ -33,13 +33,15 @@ class DeformableDETR(nn.Module):
                  num_queries: int = 300, nheads: int = 8,
                  num_encoder_layers: int = 6, num_decoder_layers: int = 6,
                  dim_feedforward: int = 1024, n_points: int = 4,
-                 with_box_refine: bool = False,
+                 dropout: float = 0.1, with_box_refine: bool = False,
                  stage_sizes: Sequence[int] = (3, 4, 6, 3), device=None,
                  generator: Optional[torch.Generator] = None):
         """Parameters are drawn from ``generator`` (a fresh one seeded with 0
-        on ``device`` when None)."""
+        on ``device`` when None). ``dropout`` acts in train mode only."""
         super().__init__()
         self.hidden_dim = hidden_dim
+        self.num_classes = num_classes
+        self.num_queries = num_queries
         self.num_decoder_layers = num_decoder_layers
         self.backbone = nn.ModuleList([Backbone(
             ("layer2", "layer3", "layer4"), stage_sizes, device=device)])
@@ -55,7 +57,8 @@ class DeformableDETR(nn.Module):
                                         device=device)
         self.transformer = DeformableTransformer(
             hidden_dim, nheads, num_encoder_layers, num_decoder_layers,
-            dim_feedforward, NUM_FEATURE_LEVELS, n_points, device=device)
+            dim_feedforward, NUM_FEATURE_LEVELS, n_points, dropout,
+            device=device)
 
         # heads: per-layer clones for refinement, else one module repeated
         # (the reference's ModuleList of one shared module)

@@ -3,6 +3,11 @@
 multi-scale encoder with per-level reference points and valid ratios, decoder
 with MSDeformAttn cross-attention and optional iterative box refinement.
 
+Dropout (``dropout``, 0 by default here; ``DeformableDETR`` passes 0.1) acts
+in train mode at the JAX package's places: on each sublayer's output before
+its residual add, after the FFN's ReLU, and on the decoder self-attention's
+weights.
+
 Modules and parameters carry the reference ``state_dict`` names
 (``encoder.layers.{i}``, ``decoder.layers.{i}``, ``level_embed``,
 ``reference_points``; with refinement the decoder holds the model's
@@ -62,8 +67,9 @@ def encoder_reference_points(spatial_shapes: Sequence[Tuple[int, int]],
 class DeformableEncoderLayer(nn.Module):
     def __init__(self, d_model: int = 256, dim_feedforward: int = 1024,
                  n_levels: int = 4, n_heads: int = 8, n_points: int = 4,
-                 device=None):
+                 dropout: float = 0.0, device=None):
         super().__init__()
+        self.dropout = nn.Dropout(dropout)
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
                                       device=device)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
@@ -75,20 +81,22 @@ class DeformableEncoderLayer(nn.Module):
                 padding_mask=None):
         src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes,
                               padding_mask)
-        src = self.norm1(src + src2)
-        src2 = self.linear2(F.relu(self.linear1(src)))
-        return self.norm2(src + src2)
+        src = self.norm1(src + self.dropout(src2))
+        src2 = self.linear2(self.dropout(F.relu(self.linear1(src))))
+        return self.norm2(src + self.dropout(src2))
 
 
 class DeformableDecoderLayer(nn.Module):
     def __init__(self, d_model: int = 256, dim_feedforward: int = 1024,
                  n_levels: int = 4, n_heads: int = 8, n_points: int = 4,
-                 device=None):
+                 dropout: float = 0.0, device=None):
         super().__init__()
+        self.dropout = nn.Dropout(dropout)
         self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
                                        device=device)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.self_attn = nn.MultiheadAttention(d_model, n_heads,
+                                               dropout=dropout,
                                                batch_first=True, device=device)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
@@ -99,12 +107,12 @@ class DeformableDecoderLayer(nn.Module):
                 src_padding_mask=None):
         q = k = tgt + query_pos
         tgt2 = self.self_attn(q, k, tgt, need_weights=False)[0]
-        tgt = self.norm2(tgt + tgt2)
+        tgt = self.norm2(tgt + self.dropout(tgt2))
         tgt2 = self.cross_attn(tgt + query_pos, reference_points, src,
                                spatial_shapes, src_padding_mask)
-        tgt = self.norm1(tgt + tgt2)
-        tgt2 = self.linear2(F.relu(self.linear1(tgt)))
-        return self.norm3(tgt + tgt2)
+        tgt = self.norm1(tgt + self.dropout(tgt2))
+        tgt2 = self.linear2(self.dropout(F.relu(self.linear1(tgt))))
+        return self.norm3(tgt + self.dropout(tgt2))
 
 
 class DeformableTransformerEncoder(nn.Module):
@@ -167,12 +175,12 @@ class DeformableTransformer(nn.Module):
     def __init__(self, d_model: int = 256, n_heads: int = 8,
                  num_encoder_layers: int = 6, num_decoder_layers: int = 6,
                  dim_feedforward: int = 1024, n_levels: int = 4,
-                 n_points: int = 4, device=None):
+                 n_points: int = 4, dropout: float = 0.0, device=None):
         super().__init__()
         self.d_model = d_model
         layer_kwargs = dict(d_model=d_model, dim_feedforward=dim_feedforward,
                             n_levels=n_levels, n_heads=n_heads,
-                            n_points=n_points, device=device)
+                            n_points=n_points, dropout=dropout, device=device)
         self.encoder = DeformableTransformerEncoder(num_encoder_layers,
                                                     **layer_kwargs)
         self.decoder = DeformableTransformerDecoder(num_decoder_layers,

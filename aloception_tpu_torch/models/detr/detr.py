@@ -30,13 +30,16 @@ class Detr(nn.Module):
     def __init__(self, num_classes: int = 91, hidden_dim: int = 256,
                  num_queries: int = 100, nheads: int = 8,
                  num_encoder_layers: int = 6, num_decoder_layers: int = 6,
-                 dim_feedforward: int = 2048, aux_loss: bool = True,
+                 dim_feedforward: int = 2048, dropout: float = 0.1,
+                 aux_loss: bool = True,
                  stage_sizes: Sequence[int] = (3, 4, 6, 3), device=None,
                  generator: Optional[torch.Generator] = None):
         """Parameters are drawn from ``generator`` (a fresh one seeded with 0
-        on ``device`` when None)."""
+        on ``device`` when None). ``dropout`` acts in train mode only."""
         super().__init__()
         self.hidden_dim = hidden_dim
+        self.num_classes = num_classes
+        self.num_queries = num_queries
         self.aux_loss = aux_loss
         self.backbone = nn.ModuleList([Backbone(("layer4",), stage_sizes,
                                                 device=device)])
@@ -44,7 +47,7 @@ class Detr(nn.Module):
         self.query_embed = nn.Embedding(num_queries, hidden_dim, device=device)
         self.transformer = Transformer(hidden_dim, nheads, num_encoder_layers,
                                        num_decoder_layers, dim_feedforward,
-                                       device=device)
+                                       dropout, device=device)
         self.class_embed = nn.Linear(hidden_dim, num_classes + 1,
                                      device=device)
         self.bbox_embed = MLP(hidden_dim, hidden_dim, 4, 3, device=device)

@@ -6,8 +6,11 @@ and keys only, never to values; the learned queries are added at every
 decoder layer, whose target starts at zeros; the decoder returns every
 layer's output after the shared final LayerNorm. Attention is
 ``nn.MultiheadAttention`` without weights, so it runs
-``scaled_dot_product_attention``. Modules carry the reference ``state_dict``
-names (``encoder.layers.{i}``, ``decoder.layers.{i}.multihead_attn``,
+``scaled_dot_product_attention``. Dropout (``dropout``, 0 by default here;
+``Detr`` passes 0.1) acts in train mode at the JAX package's places: on the
+attention weights, on each sublayer's output before its residual add, and
+after the FFN's ReLU. Modules carry the reference ``state_dict`` names
+(``encoder.layers.{i}``, ``decoder.layers.{i}.multihead_attn``,
 ``decoder.norm``).
 """
 
@@ -25,14 +28,17 @@ LN_EPS = 1e-6
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model: int = 256, nheads: int = 8,
-                 dim_feedforward: int = 2048, device=None):
+                 dim_feedforward: int = 2048, dropout: float = 0.0,
+                 device=None):
         super().__init__()
         self.self_attn = nn.MultiheadAttention(d_model, nheads,
+                                               dropout=dropout,
                                                batch_first=True, device=device)
         self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
         self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, src: torch.Tensor, pos: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None
@@ -42,24 +48,27 @@ class EncoderLayer(nn.Module):
         q = k = src + pos
         src2 = self.self_attn(q, k, src, key_padding_mask=key_padding_mask,
                               need_weights=False)[0]
-        src = self.norm1(src + src2)
-        src2 = self.linear2(F.relu(self.linear1(src)))
-        return self.norm2(src + src2)
+        src = self.norm1(src + self.dropout(src2))
+        src2 = self.linear2(self.dropout(F.relu(self.linear1(src))))
+        return self.norm2(src + self.dropout(src2))
 
 
 class DecoderLayer(nn.Module):
     def __init__(self, d_model: int = 256, nheads: int = 8,
-                 dim_feedforward: int = 2048, device=None):
+                 dim_feedforward: int = 2048, dropout: float = 0.0,
+                 device=None):
         super().__init__()
         self.self_attn = nn.MultiheadAttention(d_model, nheads,
+                                               dropout=dropout,
                                                batch_first=True, device=device)
         self.multihead_attn = nn.MultiheadAttention(
-            d_model, nheads, batch_first=True, device=device)
+            d_model, nheads, dropout=dropout, batch_first=True, device=device)
         self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
         self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
                 pos: torch.Tensor, query_pos: torch.Tensor,
@@ -69,13 +78,13 @@ class DecoderLayer(nn.Module):
         key_padding_mask: (B, L) bool, True = padded."""
         q = k = tgt + query_pos
         tgt2 = self.self_attn(q, k, tgt, need_weights=False)[0]
-        tgt = self.norm1(tgt + tgt2)
+        tgt = self.norm1(tgt + self.dropout(tgt2))
         tgt2 = self.multihead_attn(tgt + query_pos, memory + pos, memory,
                                    key_padding_mask=key_padding_mask,
                                    need_weights=False)[0]
-        tgt = self.norm2(tgt + tgt2)
-        tgt2 = self.linear2(F.relu(self.linear1(tgt)))
-        return self.norm3(tgt + tgt2)
+        tgt = self.norm2(tgt + self.dropout(tgt2))
+        tgt2 = self.linear2(self.dropout(F.relu(self.linear1(tgt))))
+        return self.norm3(tgt + self.dropout(tgt2))
 
 
 class TransformerEncoder(nn.Module):
@@ -110,10 +119,12 @@ class TransformerDecoder(nn.Module):
 class Transformer(nn.Module):
     def __init__(self, d_model: int = 256, nheads: int = 8,
                  num_encoder_layers: int = 6, num_decoder_layers: int = 6,
-                 dim_feedforward: int = 2048, device=None):
+                 dim_feedforward: int = 2048, dropout: float = 0.0,
+                 device=None):
         super().__init__()
         layer_kwargs = dict(d_model=d_model, nheads=nheads,
-                            dim_feedforward=dim_feedforward, device=device)
+                            dim_feedforward=dim_feedforward, dropout=dropout,
+                            device=device)
         self.encoder = TransformerEncoder(num_encoder_layers, **layer_kwargs)
         self.decoder = TransformerDecoder(num_decoder_layers, **layer_kwargs)
 

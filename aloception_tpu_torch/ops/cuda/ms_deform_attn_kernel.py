@@ -117,14 +117,19 @@ def ms_deform_attn_cuda(value: torch.Tensor,
     dtype; the sums are taken in float32. ``plan`` overrides
     ``launch_plan``'s choice; the kernel refuses one it cannot run.
 
-    Forward only: inputs that require grad raise NotImplementedError.
+    Where grad is enabled and an input requires it, the call goes through
+    ``ops.ms_deform_attn.MSDeformAttnFunction``, whose forward is this kernel
+    and whose backward is the gradient of the plain version; its backward
+    passes are counted in ``ms_deform_attn_cuda.backward_passes``.
     """
     shapes = tuple((int(h), int(w)) for h, w in value_spatial_shapes)
     tensors = (value, sampling_locations, attention_weights)
-    if any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "ms_deform_attn_cuda has no backward yet (ROADMAP B2); call it "
-            "under torch.no_grad()")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        from ..ms_deform_attn import MSDeformAttnFunction
+        forward = functools.partial(ms_deform_attn_cuda, plan=plan)
+        return MSDeformAttnFunction.apply(forward, value, shapes,
+                                          sampling_locations,
+                                          attention_weights)
     if value.dim() != 4:
         raise ValueError(f"value must be (B, Len_v, nH, C), got {tuple(value.shape)}")
     B, Len_v, nH, C = value.shape
@@ -173,3 +178,4 @@ def ms_deform_attn_cuda(value: torch.Tensor,
 
 
 ms_deform_attn_cuda.launches = 0
+ms_deform_attn_cuda.backward_passes = 0

@@ -16,7 +16,7 @@ Returns (B, Lq, nH * C) in value's dtype; sums are taken in float32.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,12 +53,50 @@ def ms_deform_attn_torch(value: torch.Tensor,
     return out.to(value.dtype).contiguous()
 
 
+class MSDeformAttnFunction(torch.autograd.Function):
+    """MSDA with a forward of ``forward`` (the CUDA kernel on the card) and
+    the backward of the JAX package's ``_msda_pallas_bwd``
+    (aloception_tpu/ops/ms_deform_attn.py:256): the gradient of the plain
+    version, recomputed on the saved inputs, for value, loc and w. The JAX
+    package has no backward kernel either (its Pallas backward was deleted
+    after it failed on the hardware)."""
+
+    @staticmethod
+    def forward(ctx, forward: Callable, value: torch.Tensor,
+                value_spatial_shapes: Sequence[Tuple[int, int]],
+                sampling_locations: torch.Tensor,
+                attention_weights: torch.Tensor) -> torch.Tensor:
+        ctx.shapes = tuple((int(h), int(w)) for h, w in value_spatial_shapes)
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        return forward(value, ctx.shapes, sampling_locations,
+                       attention_weights)
+
+    @staticmethod
+    def backward(ctx, grad_out: torch.Tensor):
+        value, loc, w = ctx.saved_tensors
+        needs = (ctx.needs_input_grad[1], ctx.needs_input_grad[3],
+                 ctx.needs_input_grad[4])
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip((value, loc, w), needs)]
+        with torch.enable_grad():
+            out = ms_deform_attn_torch(inputs[0], ctx.shapes, inputs[1],
+                                       inputs[2])
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        ms_deform_attn_cuda.backward_passes += 1
+        g_value, g_loc, g_w = (next(grads) if t.requires_grad else None
+                               for t in inputs)
+        return None, g_value, None, g_loc, g_w
+
+
 def ms_deform_attn(value: torch.Tensor,
                    value_spatial_shapes: Sequence[Tuple[int, int]],
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor) -> torch.Tensor:
-    """A CPU tensor takes the plain version; any other device takes the CUDA
-    kernel, which raises on what it cannot run. No fallback."""
+    """A CPU tensor takes the plain version (plain autograd gives it
+    gradients); any other device takes the CUDA kernel, which raises on what
+    it cannot run, through ``MSDeformAttnFunction`` where an input requires
+    grad. No fallback."""
     if value.device.type == "cpu":
         return ms_deform_attn_torch(value, value_spatial_shapes,
                                     sampling_locations, attention_weights)

@@ -1,0 +1,142 @@
+"""Optimizer construction (counterpart of ``aloception_tpu/train/state.py``).
+
+The reference DETR training configuration: AdamW, lr 1e-4 on the head and
+1e-5 on the backbone, weight decay 1e-4, gradient clipping by global norm at
+0.1 and gradient accumulation. The JAX package writes it as an optax chain
+(zero frozen-BN gradients, clip by global norm, two masked AdamW groups,
+``MultiSteps``, built by ``make_optimizer``); here it is one
+``TrainOptimizer`` over a model's named parameters that means the same:
+
+- frozen BatchNorm statistics are buffers of the model, so they have no
+  gradient, no optimizer state and no share of the norm; parameters under
+  ``freeze_prefixes`` are set to need no gradient and left out likewise;
+- the backbone group is every parameter with a ``backbone`` component in its
+  name, the head group all others;
+- clipping is optax's: ``g * (max / norm)`` where ``norm >= max``, computed
+  on the device without a host sync;
+- accumulation runs ``k`` backward passes of ``loss / k`` into the
+  gradients, then one update of their mean, as ``optax.MultiSteps`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable, Optional, Tuple
+
+import torch
+from torch import nn
+
+
+def onecycle_schedule(peak_lr: float, total_steps: int,
+                      pct_start: float = 0.05, div_factor: float = 25.0,
+                      final_div_factor: float = 1e4) -> Callable[[int], float]:
+    """torch OneCycleLR with anneal_strategy='linear': linear warm-up from
+    peak / div_factor to peak over pct_start of the steps, then linear
+    anneal to peak / div_factor / final_div_factor, clamped past the end.
+    Returns step -> lr."""
+    init = peak_lr / div_factor
+    final = init / final_div_factor
+    warm = max(1, int(total_steps * pct_start))
+    down_steps = max(1, total_steps - warm)
+
+    def schedule(step: int) -> float:
+        s = float(min(step, total_steps))
+        if s < warm:
+            return init + (peak_lr - init) * (s / warm)
+        return peak_lr + (final - peak_lr) * ((s - warm) / down_steps)
+
+    return schedule
+
+
+def _components(name: str) -> Tuple[str, ...]:
+    return tuple(name.split("."))
+
+
+def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float
+                         ) -> torch.Tensor:
+    """Scale ``grads`` in place by ``max_norm / norm`` where their global norm
+    is at least ``max_norm`` (optax's ``clip_by_global_norm``). Returns the
+    norm before clipping, a 0-d float32 tensor on the gradients' device. No
+    host sync."""
+    grads = [g for g in grads if g is not None]
+    norm = torch.linalg.vector_norm(torch.stack(
+        [n.float() for n in torch._foreach_norm(grads)]))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+    return norm
+
+
+class TrainOptimizer:
+    """AdamW in two groups, clipping and accumulation over a model's
+    parameters. Call ``backward(loss)`` for each batch, then ``step()``;
+    every ``accumulate_steps``-th ``step`` updates the parameters."""
+
+    def __init__(self, model: nn.Module, lr: float = 1e-4,
+                 lr_backbone: float = 1e-5, weight_decay: float = 1e-4,
+                 grad_clip: float = 0.1, accumulate_steps: int = 1,
+                 schedule: Optional[Callable[[int], float]] = None,
+                 freeze_prefixes: Tuple[str, ...] = ()):
+        self.lr, self.lr_backbone = lr, lr_backbone
+        self.grad_clip = grad_clip
+        self.accumulate_steps = max(1, int(accumulate_steps))
+        self.schedule = schedule
+        head, backbone = [], []
+        for name, p in model.named_parameters():
+            parts = _components(name)
+            if any(f in parts for f in freeze_prefixes):
+                p.requires_grad_(False)
+            elif not p.requires_grad:
+                continue
+            elif "backbone" in parts:
+                backbone.append(p)
+            else:
+                head.append(p)
+        self.params = head + backbone
+        self.adamw = torch.optim.AdamW(
+            [{"params": head, "lr": lr}, {"params": backbone,
+                                          "lr": lr_backbone}],
+            lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+        self.micro_steps = 0       # backward passes since the last update
+        self.updates = 0           # parameter updates applied
+
+    def backward(self, loss: torch.Tensor):
+        (loss / self.accumulate_steps).backward()
+
+    def _set_lr(self):
+        if self.schedule is None:
+            return
+        lr = self.schedule(self.updates)
+        scale = self.lr_backbone / self.lr if self.lr > 0 else 1.0
+        self.adamw.param_groups[0]["lr"] = lr
+        self.adamw.param_groups[1]["lr"] = lr * scale
+
+    def step(self) -> torch.Tensor:
+        """Count one accumulated batch; on the ``accumulate_steps``-th clip
+        the mean gradient and update. Returns the global norm of the mean
+        gradient accumulated so far (the norm that is clipped, on an update),
+        a 0-d device tensor."""
+        self.micro_steps += 1
+        grads = [p.grad for p in self.params if p.grad is not None]
+        if not grads:
+            raise RuntimeError("step() before any backward()")
+        if self.micro_steps < self.accumulate_steps:
+            norm = torch.linalg.vector_norm(torch.stack(
+                [n.float() for n in torch._foreach_norm(grads)]))
+            return norm * (self.accumulate_steps / self.micro_steps)
+        norm = clip_by_global_norm_(grads, self.grad_clip)
+        self._set_lr()
+        self.adamw.step()
+        self.adamw.zero_grad(set_to_none=True)
+        self.micro_steps = 0
+        self.updates += 1
+        return norm
+
+    def state_dict(self) -> dict:
+        return {"adamw": self.adamw.state_dict(),
+                "micro_steps": self.micro_steps, "updates": self.updates}
+
+    def load_state_dict(self, state: dict):
+        self.adamw.load_state_dict(state["adamw"])
+        self.micro_steps = state["micro_steps"]
+        self.updates = state["updates"]
+

@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py
 
-1. Builds the MSDA CUDA kernel from ``aloception_tpu_torch/csrc`` (printing
-   ``ptxas -v``'s registers and spills of each instance) and holds it against
-   its plain PyTorch version on the card, in float32 and bfloat16: at the
+1. Builds the CUDA kernels from ``aloception_tpu_torch/csrc`` (one ``nvcc``
+   per source, all at once), prints ``ptxas -v``'s registers and spills of
+   each MSDA instance and of the Hungarian kernel, and holds the MSDA
+   kernel against its plain PyTorch version on the card, in float32 and
+   bfloat16: at the
    encoder and decoder (level-split) calls of Deformable-DETR-R50 at 640 px
    and batch 16 (the main path's plans), at a small odd shape, with narrow
    vectors, with locations outside the levels, NaN and far-outside points,
@@ -39,9 +41,28 @@
      synchronising operations of one request.
 5. Times the DETR-R50 forward at batch 32, 640x640 (the configuration
    ``bench.py::bench_detr`` measures) and profiles it as in 3.
+6. Holds the Hungarian kernel against its plain version (identical
+   assignments, their largest query-index difference and count of
+   differing targets reported; scipy's optimal total on integer costs with
+   ties) at the
+   training path's 48 matrices of 300 queries and at DETR's 8 of 100, and
+   times it at (48, 300, 7) and (48, 300, 100) beside the plain version and
+   its bound.
+7. The training gate: one float32 Deformable-DETR-R50-refine train step at
+   batch 2, 640x640, dropout 0, with the MSDA kernel forward against the
+   plain forward (losses, every gradient, the matched queries).
+8. The training main path: Deformable-DETR-R50-refine (91 classes, float32,
+   dropout 0.1) trains through ``make_deformable_detr_trainer(...).fit`` on
+   the synthetic sample at batch 8, 640x640 (each batch's frames made and
+   transformed inside its step): a warm-up step and 6 timed ones, each
+   with 12 MSDA launches, 12 backward passes, one Hungarian
+   launch and one synchronising operation; its profile; then a loss that
+   falls over 10 steps on one repeated batch.
+9. DETR-R50 (91 classes, float32) trains 8 batches of 16 at 384x384
+   through ``make_detr_trainer(...).fit``: 2 optimizer updates.
 
-Prints the card's name and power limit, one JSON line describing the kernel,
-and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
+Prints the card's name and power limit, one JSON line describing the
+kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
 is then not 0 and no result line is printed. Needs a CUDA card; never
 imports JAX.
 """
@@ -101,6 +122,27 @@ MSDA_CALLS_PER_FORWARD = 12      # 6 encoder + 6 decoder layers
 DETR_BATCH = 32
 FRAME_H, FRAME_W = (360, 640), (480, 640)
 DETR_CLASSES = 91                # + the background class
+# Hungarian kernel vs plain version: name -> (matrices, queries, targets,
+# n_valid drawn in turn from, integer costs with ties)
+HUNGARIAN_CASES = {
+    "deformable": (48, 300, 100, (0, 1, 7, 37, 100), False),
+    "deformable_ties": (48, 300, 100, (0, 1, 7, 37, 100), True),
+    "detr": (8, 100, 100, (0, 1, 7, 37, 100), False),
+    "detr_ties": (8, 100, 100, (0, 1, 7, 37, 100), True),
+}
+# the training path's call: 6 decoder outputs x batch 8 matrices of 300
+# queries; timed at a few targets and at the capacity of 100
+HUNGARIAN_TIMED = ((48, 300, 7), (48, 300, 100))
+# training: Deformable-DETR-R50-refine at batch 8, 640 x 640, float32; one
+# warm-up step, then the timed ones; a loss that falls on a repeated batch;
+# the fp32 gate of the kernel forward against the plain one at batch 2
+TRAIN_BATCH, TRAIN_SIZE = 8, (640, 640)
+TRAIN_STEPS = 6
+OVERFIT_STEPS = 10
+GATE_BATCH = 2
+# DETR-R50 training, short: 8 batches of 16 at 384 x 384, accumulate 4
+DETR_TRAIN_BATCH, DETR_TRAIN_SIZE, DETR_TRAIN_BATCHES = 16, (384, 384), 8
+KERNEL_SOURCES = ("ms_deform_attn", "hungarian")
 
 
 def msda_inputs(shapes, B, Lq, channels, loc_range, dtype, device, seed=0):
@@ -623,11 +665,12 @@ def _device_us(avg, self_only=False):
     raise AttributeError("profiler rows carry no device time")
 
 
-def _trace(model, x, mask, activities, n_fwd):
+def _trace(fn, activities, n):
+    """A profile of ``n`` calls of ``fn``, ending in a synchronise."""
     from torch.profiler import profile
-    with torch.inference_mode(), profile(activities=activities) as prof:
-        for _ in range(n_fwd):
-            model(x, mask)
+    with profile(activities=activities) as prof:
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
     return prof
 
@@ -654,15 +697,18 @@ def _device_busy(prof):
 def profile_phase(model, x, mask, n_fwd=3):
     from torch.profiler import ProfilerActivity
 
-    with torch.inference_mode():
-        for _ in range(2):
+    def forward():
+        with torch.inference_mode():
             model(x, mask)
+
+    for _ in range(2):
+        forward()
     # the idle share from a device-only trace: tracing host ops slows the
     # host, and with it the device's feed
     n_act, busy, window = _device_busy(
-        _trace(model, x, mask, [ProfilerActivity.CUDA], n_fwd))
-    prof = _trace(model, x, mask,
-                  [ProfilerActivity.CPU, ProfilerActivity.CUDA], n_fwd)
+        _trace(forward, [ProfilerActivity.CUDA], n_fwd))
+    prof = _trace(forward, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  n_fwd)
     _, busy_host, window_host = _device_busy(prof)
     print(f"profile {n_fwd} forwards: {n_act / n_fwd:.1f} device activities "
           f"and {busy / n_fwd / 1e3:.3f} ms device-busy per forward; idle "
@@ -707,6 +753,466 @@ def profile_phase(model, x, mask, n_fwd=3):
         print(f"  {s[:200]}")
 
 
+def hungarian_inputs(M, nq, nt, choices, ties, seed):
+    """(cost (M, nq, nt) float32, n_valid (M,) int32) on the CPU: uniform
+    costs, or integers in [0, 4) with many ties."""
+    g = torch.Generator().manual_seed(seed)
+    cost = (torch.randint(0, 4, (M, nq, nt), generator=g).float() if ties
+            else torch.rand(M, nq, nt, generator=g))
+    n_valid = torch.tensor([choices[k % len(choices)] for k in range(M)],
+                           dtype=torch.int32)
+    return cost, n_valid
+
+
+def hungarian_phase(device):
+    """The Hungarian kernel against its plain version: identical
+    assignments in every case, scipy's optimal total on the tie cases; its
+    time at the training path's shape beside the plain version's and its
+    bound."""
+    from scipy.optimize import linear_sum_assignment
+    from aloception_tpu_torch.ops.cuda import hungarian_cuda
+    from aloception_tpu_torch.ops.hungarian import (hungarian,
+                                                    hungarian_torch, jv_solve)
+
+    # the largest difference of a matched query index between the kernel
+    # and the plain version, and the count of targets matched differently,
+    # over every case and timed shape; both must be 0
+    diff = dict(max_abs_err=0, mismatched=0)
+
+    def held(got, want, tag):
+        d = (got.long() - want.long()).abs()
+        diff["max_abs_err"] = max(diff["max_abs_err"], int(d.max()))
+        diff["mismatched"] += int((d != 0).sum())
+        if d.any():
+            raise AssertionError(f"hungarian {tag}: the kernel's assignment "
+                                 f"differs from the plain version's at "
+                                 f"{int((d != 0).sum())} targets, by up to "
+                                 f"{int(d.max())} in query index")
+
+    for seed, (name, (M, nq, nt, choices, ties)) in enumerate(
+            HUNGARIAN_CASES.items()):
+        cost, n_valid = hungarian_inputs(M, nq, nt, choices, ties, seed)
+        got = hungarian(cost.to(device), n_valid.to(device)).cpu()
+        held(got, hungarian_torch(cost, n_valid), name)
+        for k in range(M if ties else 0):
+            n = int(n_valid[k])
+            c = cost[k, :, :n].T.double().numpy()
+            r, q = linear_sum_assignment(c)
+            if n and c[range(n), got[k, :n].numpy()].sum() != c[r, q].sum():
+                raise AssertionError(f"hungarian {name}[{k}]: total cost is "
+                                     "not scipy's optimum")
+        print(f"hungarian {name}: {M} x ({nq} queries, {nt} targets), "
+              f"n_valid {sorted(set(n_valid.tolist()))}: assignment identical "
+              f"to the plain version's"
+              f"{'; totals equal scipy optimum' if ties else ''}")
+
+    timed = {}
+    for M, nq, nt in HUNGARIAN_TIMED:
+        cost, n_valid = hungarian_inputs(M, nq, nt, (nt,), False, seed=7)
+        c_d, n_d = cost.to(device), n_valid.to(device)
+        t0 = time.perf_counter()
+        want = hungarian_torch(cost, n_valid)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        held(hungarian_cuda(c_d, n_d).cpu(), want, f"({M}, {nq}, {nt})")
+        ms = graph_ms(lambda: hungarian_cuda(c_d, n_d), iters=5, reps=2)
+        eager_ms = cuda_ms(lambda: hungarian_cuda(c_d, n_d), iters=5,
+                           warmup=1)
+        # the work these inputs need: each augmenting step relaxes the
+        # unused columns (two subtractions and a compare) and moves the
+        # potentials (a subtraction) over all Nq columns
+        steps = [jv_solve(cost[k, :, :nt].T.numpy())[1] for k in range(M)]
+        nbytes = cost.numel() * 4 + M * 4 + M * nt * 4
+        flops = 4 * sum(steps) * nq
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"hungarian ({M}, {nq}, {nt}): kernel {ms:.4f} ms (graph), "
+              f"{eager_ms:.4f} ms (eager launches); plain version on the host "
+              f"{plain_ms:.2f} ms; bound {bound_ms * 1e3:.3f} us by "
+              f"{bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e6:.2f} M fp32 "
+              f"ops, {bound_ms / ms:.2%} of it); serial chain: "
+              f"{max(steps)} dependent augmenting steps in the longest matrix "
+              f"(mean {sum(steps) / M:.1f}), {ms * 1e3 / max(steps):.3f} us "
+              f"of kernel time per step")
+        timed[(M, nq, nt)] = dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by,
+                                  max_steps=max(steps))
+    print(f"hungarian kernel vs plain version over every case and timed "
+          f"shape: max query-index difference {diff['max_abs_err']}, "
+          f"{diff['mismatched']} targets matched differently")
+    return timed, diff
+
+
+class SampledLoader:
+    """``n`` batches, lists of ``batch_size`` frames of ``dataset`` drawn
+    with replacement by a seeded generator (the synthetic sample has 12,
+    fewer than a batch of 16). Each frame is made and transformed when the
+    loop asks for its batch, as the data module's loader does, so that work
+    falls inside the trainer's step; ``seconds`` keeps its host time per
+    batch."""
+
+    def __init__(self, dataset, batch_size, n, seed):
+        g = torch.Generator().manual_seed(seed)
+        self.dataset = dataset
+        self.rows = torch.randint(len(dataset), (n, batch_size),
+                                  generator=g).tolist()
+        self.seconds = []
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __iter__(self):
+        for row in self.rows:
+            t0 = time.perf_counter()
+            frames = [self.dataset[i] for i in row]
+            self.seconds.append(time.perf_counter() - t0)
+            yield frames
+
+
+def one_batch(dataset, batch_size, seed):
+    """One batch of ``SampledLoader``, made now."""
+    return next(iter(SampledLoader(dataset, batch_size, 1, seed)))
+
+
+def _counts():
+    from aloception_tpu_torch.ops.cuda import hungarian_cuda, ms_deform_attn_cuda
+    return (ms_deform_attn_cuda.launches, ms_deform_attn_cuda.backward_passes,
+            hungarian_cuda.launches)
+
+
+def _reset_counts():
+    from aloception_tpu_torch.ops.cuda import hungarian_cuda, ms_deform_attn_cuda
+    ms_deform_attn_cuda.launches = ms_deform_attn_cuda.backward_passes = 0
+    hungarian_cuda.launches = 0
+
+
+def _sync_messages(caught):
+    return [w for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def make_recorder():
+    """A Trainer callback that reads, at the end of each train batch (just
+    after the batch's metrics fetch), the host clock, the kernel counters,
+    the synchronising operations recorded so far in ``caught`` and the
+    batch's metrics."""
+    from aloception_tpu_torch.train import Callback
+
+    class Recorder(Callback):
+        def __init__(self):
+            self.rows, self.caught = [], []
+
+        def on_train_batch_end(self, trainer, metrics, step):
+            self.rows.append(dict(t=time.perf_counter(), counts=_counts(),
+                                  syncs=len(_sync_messages(self.caught)),
+                                  metrics=metrics))
+
+    return Recorder()
+
+
+def recorded_fit(trainer, recorder, batches):
+    """``trainer.fit`` over ``batches`` (one epoch, no validation) with the
+    counters set to 0 just before and synchronising operations recorded.
+    Returns per batch (host seconds, (msda launches, msda backward passes,
+    hungarian launches), synchronising operations, metrics)."""
+    torch.cuda.synchronize()
+    _reset_counts()
+    recorder.rows = []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            recorder.caught = caught
+            t0 = time.perf_counter()
+            trainer.fit(batches, None, max_epochs=1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    prev = dict(t=t0, counts=(0, 0, 0), syncs=0)
+    per_batch = []
+    for row in recorder.rows:
+        per_batch.append((row["t"] - prev["t"],
+                          tuple(a - b for a, b in zip(row["counts"],
+                                                      prev["counts"])),
+                          row["syncs"] - prev["syncs"], row["metrics"]))
+        prev = row
+    return per_batch
+
+
+def _check_losses(per_batch, tag):
+    import math
+    for i, (_, _, _, metrics) in enumerate(per_batch):
+        bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{tag} batch {i}: non-finite {bad}")
+
+
+def train_gate_phase(device):
+    """One Deformable-DETR-R50-refine train step, float32, TF32 off, dropout
+    0, batch 2 at 640 x 640: the MSDA kernel forward (through the autograd
+    Function) against the plain forward, same model and batch. Losses to
+    1e-4 relative, every parameter's gradient to 1e-3 of its largest
+    magnitude, the matched queries equal."""
+    from aloception_tpu_torch.models.deformable_detr import (
+        deformable_criterion, deformable_detr_r50)
+    from aloception_tpu_torch.models.deformable_detr import ms_deform_attn \
+        as msda_module
+    from aloception_tpu_torch.models.deformable_detr.criterion import (
+        focal_cost_matrix)
+    from aloception_tpu_torch.models.detr.matcher import match_outputs
+    from aloception_tpu_torch.ops.ms_deform_attn import ms_deform_attn_torch
+    from aloception_tpu_torch.train import CocoDetection2Detr
+    from aloception_tpu_torch.train.step import to_float32
+    from aloception_tpu_torch.train.trainer import to_device
+
+    model = deformable_detr_r50(
+        num_classes=91, with_box_refine=True, dropout=0.0, device=device,
+        generator=torch.Generator(device=device).manual_seed(0)).train()
+    # sampling that depends on the query, as in slice_phase
+    g = torch.Generator(device=device).manual_seed(2)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, msda_module.MSDeformAttn):
+                mod.sampling_offsets.weight.normal_(0.0, 0.1, generator=g)
+                mod.attention_weights.weight.normal_(0.0, 0.1, generator=g)
+    dm = CocoDetection2Detr(batch_size=GATE_BATCH, sample=True,
+                            size=TRAIN_SIZE)
+    batch = dm.prepare_batch(one_batch(dm.train_dataset, GATE_BATCH, seed=20))
+    images, mask = to_device(batch["inputs"], device)
+    targets = to_device(batch["targets"], device)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        out = to_float32(model(images, mask))
+        loss, metrics = deformable_criterion(out, targets)
+        loss.backward()
+        matched = match_outputs([out] + out["aux_outputs"], targets,
+                                focal_cost_matrix)
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters() if p.grad is not None}
+        return ({k: v.item() for k, v in metrics.items()}, grads,
+                torch.stack(matched))
+
+    _reset_counts()
+    k_loss, k_grads, k_matched = step()
+    kernel_counts = _counts()
+    with mock.patch.object(msda_module, "ms_deform_attn",
+                           ms_deform_attn_torch):
+        p_loss, p_grads, p_matched = step()
+    if kernel_counts[:2] != (MSDA_CALLS_PER_FORWARD,) * 2 \
+            or _counts()[:2] != kernel_counts[:2]:
+        raise AssertionError(f"train gate: msda (launches, backward passes) "
+                             f"{kernel_counts[:2]} on the kernel step, "
+                             f"{_counts()[:2]} after the plain one")
+    loss_err = max(abs(k_loss[k] - p_loss[k]) / max(abs(p_loss[k]), 1e-12)
+                   for k in p_loss)
+    if k_grads.keys() != p_grads.keys():
+        raise AssertionError("train gate: gradients of other parameters")
+    grad_err, worst = 0.0, None
+    for n, ref in p_grads.items():
+        scale = ref.abs().max().item()
+        err = (k_grads[n] - ref).abs().max().item()
+        rel = err / scale if scale else (0.0 if err == 0 else float("inf"))
+        if rel > grad_err:
+            grad_err, worst = rel, n
+    same = torch.equal(k_matched, p_matched)
+    print(f"train gate fp32 bs{GATE_BATCH} {TRAIN_SIZE}: kernel forward vs "
+          f"plain forward, loss_total {k_loss['loss_total']:.6f} / "
+          f"{p_loss['loss_total']:.6f}, max relative loss error "
+          f"{loss_err:.3e} (tol 1e-4), max gradient error "
+          f"{grad_err:.3e} of max|g| (tol 1e-3; {worst}) over "
+          f"{len(p_grads)} parameters, matched queries equal: {same}; msda "
+          f"launches {kernel_counts[0]}, backward passes {kernel_counts[1]}")
+    if not (loss_err <= 1e-4 and grad_err <= 1e-3 and same):
+        raise AssertionError("train gate: the kernel forward's step disagrees "
+                             "with the plain forward's")
+    return dict(loss_err=loss_err, grad_err=grad_err)
+
+
+def train_profile(trainer, batch, device, n_steps=2):
+    """Device-busy time and idle share of train steps (device-only trace),
+    and their device time by op and by kernel."""
+    from torch.profiler import ProfilerActivity
+    from aloception_tpu_torch.train.trainer import to_device
+
+    images, mask = to_device(batch["inputs"], device)
+    targets = to_device(batch["targets"], device)
+
+    def step():
+        trainer.train_step(images, mask, targets)[1].cpu()
+
+    step()
+    n_act, busy, window = _device_busy(
+        _trace(step, [ProfilerActivity.CUDA], n_steps))
+    prof = _trace(step, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  n_steps)
+    _, busy_host, _ = _device_busy(prof)
+    print(f"profile {n_steps} train steps: {n_act / n_steps:.1f} device "
+          f"activities and {busy / n_steps / 1e3:.3f} ms device-busy per "
+          f"step; idle share of the device window {1 - busy / window:.4f} "
+          "(device-only trace)")
+    rows = prof.key_averages()
+
+    def per_step(keys, self_only):
+        us = sum(_device_us(r, self_only) for r in rows if keys(r.key))
+        return us / n_steps / 1e3, us / busy_host
+
+    print("device ms per train step by op (children included; nested ops "
+          "overlap):")
+    for r in sorted((r for r in rows if r.key.startswith("aten::")
+                     or r.key.endswith("Backward0") or "Backward" in r.key),
+                    key=_device_us, reverse=True)[:20]:
+        us = _device_us(r)
+        print(f"  {us / n_steps / 1e3:8.3f} ms {us / busy_host:6.1%} "
+              f"{r.count // n_steps:5d} calls  {r.key}")
+    print("device ms per train step by kernel (self):")
+    for r in sorted((r for r in rows if _device_us(r, self_only=True) > 0
+                     and not r.key.startswith("aten::")),
+                    key=lambda r: _device_us(r, self_only=True),
+                    reverse=True)[:15]:
+        us = _device_us(r, self_only=True)
+        print(f"  {us / n_steps / 1e3:8.3f} ms {us / busy_host:6.1%} "
+              f"{r.count // n_steps:5d} calls  {r.key[:100]}")
+    parts = {
+        "msda forward kernel": (lambda k: "msda_forward_kernel" in k, True),
+        "msda plain backward (MSDeformAttnFunctionBackward, children "
+        "included)": (lambda k: k == "MSDeformAttnFunctionBackward", False),
+        "grid_sample backward": (
+            lambda k: k == "aten::grid_sampler_2d_backward", False),
+        "hungarian kernel": (lambda k: "hungarian_kernel" in k, True),
+        "AdamW update (children included)": (
+            lambda k: k.startswith("Optimizer.step#"), False),
+    }
+    shares = {}
+    for label, (keys, self_only) in parts.items():
+        ms, share = per_step(keys, self_only)
+        shares[label] = (ms, share)
+        print(f"  {label}: {ms:.3f} ms per step, {share:.2%} of device-busy")
+    return dict(busy_ms=busy / n_steps / 1e3, idle=1 - busy / window,
+                parts=shares)
+
+
+def train_phase(device):
+    """The slice's main path: Deformable-DETR-R50-refine (91 classes, 300
+    queries, 6+6 layers, float32, dropout 0.1) trains through
+    ``make_deformable_detr_trainer(...).fit`` on the synthetic sample at
+    batch 8, 640 x 640: one warm-up step and TRAIN_STEPS timed ones, with 12
+    kernel launches and 12 Function backward passes a step, one Hungarian
+    launch a criterion call and one synchronising operation a batch; then
+    its profile, and a loss that falls over OVERFIT_STEPS on one repeated
+    batch."""
+    import tempfile
+    from aloception_tpu_torch.models.deformable_detr import deformable_detr_r50
+    from aloception_tpu_torch.train import (CocoDetection2Detr,
+                                            make_deformable_detr_trainer)
+
+    model = deformable_detr_r50(
+        num_classes=91, with_box_refine=True, device=device,
+        generator=torch.Generator(device=device).manual_seed(0))
+    dm = CocoDetection2Detr(batch_size=TRAIN_BATCH, sample=True,
+                            size=TRAIN_SIZE)
+    batches = SampledLoader(dm.train_dataset, TRAIN_BATCH, 1 + TRAIN_STEPS,
+                            seed=30)
+    recorder = make_recorder()
+    with tempfile.TemporaryDirectory() as log_dir:
+        trainer = make_deformable_detr_trainer(
+            model=model, data_module=dm, log_dir=log_dir,
+            callbacks=[recorder], seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        per_batch = recorded_fit(trainer, recorder, batches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        _check_losses(per_batch, "deformable training")
+        launches = tuple(sum(c[i] for _, c, _, _ in per_batch)
+                         for i in range(3))
+        for i, (_, counts, syncs, _) in enumerate(per_batch):
+            if counts != (MSDA_CALLS_PER_FORWARD, MSDA_CALLS_PER_FORWARD, 1):
+                raise AssertionError(
+                    f"train batch {i}: (msda launches, msda backward passes, "
+                    f"hungarian launches) {counts}")
+            if syncs != 1:
+                raise AssertionError(f"train batch {i}: {syncs} synchronising "
+                                     "operations, not 1")
+        timed = [dt for dt, _, _, _ in per_batch[1:]]
+        step_s = sum(timed) / len(timed)
+        frames_ms = sum(batches.seconds[1:]) / len(timed) * 1e3
+        print(f"deformable_detr_r50_refine training fp32 bs{TRAIN_BATCH} "
+              f"{TRAIN_SIZE} (TF32: cudnn {torch.backends.cudnn.allow_tf32}, "
+              f"matmul {torch.backends.cuda.matmul.allow_tf32}): "
+              f"{len(per_batch)} steps through Trainer.fit; warm-up "
+              f"{per_batch[0][0] * 1e3:.1f} ms; timed step ms "
+              f"{[round(dt * 1e3, 2) for dt in timed]}, mean "
+              f"{step_s * 1e3:.2f} ms = {1 / step_s:.3f} steps/s = "
+              f"{TRAIN_BATCH / step_s:.2f} images/s, of which making and "
+              f"transforming the frames on the host {frames_ms:.2f} ms; "
+              f"peak memory "
+              f"{peak_gib:.2f} GiB; per step: msda launches and backward "
+              f"passes {MSDA_CALLS_PER_FORWARD}, hungarian launches 1 (totals "
+              f"{launches}); synchronising operations "
+              f"per batch {[s for _, _, s, _ in per_batch]}; loss_total "
+              f"{[round(m['loss_total'], 4) for _, _, _, m in per_batch]}")
+        fixed = one_batch(dm.train_dataset, TRAIN_BATCH, seed=31)
+        prof = train_profile(trainer, dm.prepare_batch(fixed), device)
+
+        # the loss on one repeated batch
+        recorder.caught = []
+        overfit = recorded_fit(trainer, recorder, [fixed] * OVERFIT_STEPS)
+        _check_losses(overfit, "overfit")
+        losses = [m["loss_total"] for _, _, _, m in overfit]
+        print(f"one repeated batch, {OVERFIT_STEPS} steps: loss_total "
+              f"{[round(v, 4) for v in losses]}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError("the loss did not fall on a repeated batch")
+    return dict(launches=launches, step_ms=step_s * 1e3, frames_ms=frames_ms,
+                peak_gib=peak_gib, profile=prof)
+
+
+def detr_train_phase(device):
+    """DETR-R50 (91 classes, float32) trains DETR_TRAIN_BATCHES batches of
+    16 at 384 x 384 through ``make_detr_trainer(...).fit``: 2 optimizer
+    updates at accumulate 4, finite losses, a Hungarian launch and one
+    synchronising operation a batch."""
+    import tempfile
+    from aloception_tpu_torch.models.detr import detr_r50
+    from aloception_tpu_torch.train import (CocoDetection2Detr,
+                                            make_detr_trainer)
+
+    model = detr_r50(num_classes=DETR_CLASSES, device=device,
+                     generator=torch.Generator(device=device).manual_seed(0))
+    dm = CocoDetection2Detr(batch_size=DETR_TRAIN_BATCH, sample=True,
+                            size=DETR_TRAIN_SIZE)
+    batches = SampledLoader(dm.train_dataset, DETR_TRAIN_BATCH,
+                            DETR_TRAIN_BATCHES, seed=40)
+    recorder = make_recorder()
+    with tempfile.TemporaryDirectory() as log_dir:
+        trainer = make_detr_trainer(model=model, data_module=dm,
+                                    log_dir=log_dir, callbacks=[recorder],
+                                    seed=0)
+        per_batch = recorded_fit(trainer, recorder, batches)
+    _check_losses(per_batch, "detr training")
+    for i, (_, counts, syncs, _) in enumerate(per_batch):
+        if counts[2] != 1 or syncs != 1:
+            raise AssertionError(f"detr train batch {i}: {counts[2]} "
+                                 f"hungarian launches, {syncs} syncs")
+    if trainer.optimizer.updates != DETR_TRAIN_BATCHES // 4:
+        raise AssertionError(f"{trainer.optimizer.updates} optimizer updates")
+    timed = [dt for dt, _, _, _ in per_batch[1:]]
+    step_ms = sum(timed) / len(timed) * 1e3
+    frames_ms = sum(batches.seconds[1:]) / len(timed) * 1e3
+    print(f"detr_r50 training fp32 bs{DETR_TRAIN_BATCH} {DETR_TRAIN_SIZE}: "
+          f"{len(per_batch)} batches, {trainer.optimizer.updates} optimizer "
+          f"updates (accumulate 4); batch ms "
+          f"{[round(dt * 1e3, 2) for dt, _, _, _ in per_batch]}, mean after "
+          f"the first {step_ms:.2f} ms = {DETR_TRAIN_BATCH / step_ms * 1e3:.2f}"
+          f" images/s, of which making and transforming the frames on the "
+          f"host {frames_ms:.2f} ms"
+          f"; hungarian launches {sum(c[2] for _, c, _, _ in per_batch)}"
+          f"; synchronising operations per batch "
+          f"{[s for _, _, s, _ in per_batch]}; loss_total "
+          f"{[round(m['loss_total'], 4) for _, _, _, m in per_batch]}")
+    return dict(step_ms=step_ms, frames_ms=frames_ms,
+                launches=sum(c[2] for _, c, _, _ in per_batch))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: "
@@ -723,9 +1229,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
 
+    # one nvcc per source, all started together
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    load_library("ms_deform_attn")
-    print(f"built ms_deform_attn.cu in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(load_library, KERNEL_SOURCES))
+    print(f"built {', '.join(n + '.cu' for n in KERNEL_SOURCES)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for line in build_log("hungarian").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  hungarian ptxas: {line.strip()}")
     report = ptxas_report(build_log("ms_deform_attn"))
     print("ptxas -v, per instance (dtype, vector bytes, levels unrolled per "
           "sub-group or 0 for the loop): registers, spill stores/loads bytes")
@@ -739,16 +1252,27 @@ def main():
     del m16
     detr_parity_phase(device)
     detr_phase(device)
+    hung, hung_diff = hungarian_phase(device)
+    gate = train_gate_phase(device)
+    train = train_phase(device)
+    torch.cuda.empty_cache()
+    detr_train = detr_train_phase(device)
 
     enc, dec = sites["encoder"], sites["decoder"]
+    msda_train, msda_backward, hung_train = train["launches"]
+    hung_full = hung[HUNGARIAN_TIMED[-1]]
     print(json.dumps({"kernels": [{
         "name": "ms_deform_attn",
         "route": "cuda",
         "source": "aloception_tpu_torch/csrc/ms_deform_attn.cu",
         "replaces": "aloception_tpu/ops/pallas/ms_deform_attn_kernel.py:245",
-        "launches": launches + frame_launches,
+        "launches": launches + frame_launches + msda_train,
         "launches_by_path": {"fused_preprocess": launches,
-                             "frame": frame_launches},
+                             "frame": frame_launches,
+                             "train": msda_train},
+        # the training path's backward: the gradient of the plain version,
+        # recomputed through the autograd Function
+        "backward_passes": msda_backward,
         "max_abs_err": max(v for k, v in errs.items() if "float32" in k),
         "max_abs_err_bf16": max(v for k, v in errs.items()
                                 if "bfloat16" in k),
@@ -766,7 +1290,32 @@ def main():
         "registers": {"/".join(map(str, k)): v[0]
                       for k, v in sorted(report.items())},
         "slice_fp32_parity": parity,
-    }]}))
+        "train_gate": gate,
+    }, {
+        "name": "hungarian",
+        "route": "cuda",
+        "source": "aloception_tpu_torch/csrc/hungarian.cu",
+        # the JAX package's on-device JV (XLA loops, not a Pallas kernel)
+        "replaces": "aloception_tpu/ops/hungarian.py:28",
+        "launches": hung_train,
+        "launches_by_path": {"train": hung_train,
+                             "detr_train": detr_train["launches"]},
+        # the largest query-index difference from the plain version's
+        # assignment, and the targets matched differently, as measured
+        "max_abs_err": hung_diff["max_abs_err"],
+        "mismatched_targets": hung_diff["mismatched"],
+        "ms": hung_full["ms"], "ms_eager": hung_full["eager_ms"],
+        "plain_ms": hung_full["plain_ms"],
+        "bound_ms": hung_full["bound_ms"], "bound_by": hung_full["bound_by"],
+        # no PyTorch call solves an assignment
+        "library_ms": None,
+        "timed": {"x".join(map(str, k)): v for k, v in hung.items()},
+    }], "train": {"deformable_step_ms": train["step_ms"],
+                  "deformable_frames_ms": train["frames_ms"],
+                  "detr_frames_ms": detr_train["frames_ms"],
+                  "deformable_peak_gib": train["peak_gib"],
+                  "deformable_profile": train["profile"],
+                  "detr_step_ms": detr_train["step_ms"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

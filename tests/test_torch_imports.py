@@ -1,14 +1,19 @@
 """The PyTorch port stands alone: no module of ``aloception_tpu_torch``
-imports jax, flax, the JAX package or OpenCV (which the card machine lacks),
-directly or inside a function."""
+imports jax, flax, optax, orbax, the JAX package, OpenCV (which the card
+machine lacks) or scipy (the port keeps its own assignment solver), directly
+or inside a function; ``chip_smoke.py`` imports no jax, flax or JAX package
+(scipy is its Hungarian oracle)."""
 
 import ast
 from pathlib import Path
 
 import pytest
 
-PKG = Path(__file__).resolve().parents[1] / "aloception_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "aloception_tpu", "cv2")
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "aloception_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "aloception_tpu",
+             "cv2", "scipy")
+SMOKE_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "aloception_tpu")
 SOURCES = sorted(PKG.rglob("*.py"))
 
 
@@ -29,3 +34,9 @@ def test_port_has_sources():
 def test_no_jax_import(path):
     roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))
     assert not roots & set(FORBIDDEN), f"{path} imports {roots & set(FORBIDDEN)}"
+
+
+def test_chip_smoke_imports_no_jax():
+    path = ROOT / "chip_smoke.py"
+    roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))
+    assert not roots & set(SMOKE_FORBIDDEN), roots & set(SMOKE_FORBIDDEN)

@@ -17,7 +17,8 @@ import torch
 from aloception_tpu_torch.ops.cuda import ms_deform_attn_cuda
 from aloception_tpu_torch.ops.cuda.ms_deform_attn_kernel import (LaunchPlan,
                                                                  launch_plan)
-from aloception_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
+from aloception_tpu_torch.ops.ms_deform_attn import (MSDeformAttnFunction,
+                                                     ms_deform_attn,
                                                      ms_deform_attn_torch)
 
 # (level shapes, Lq, nH, C, P, location range)
@@ -109,8 +110,9 @@ def test_cuda_wrapper_rejects(bad):
                              else a for a in make_inputs("c16"))
     err = ValueError
     if bad == "grad":
+        # an input that requires grad goes through MSDeformAttnFunction, whose
+        # forward is the kernel: a CPU tensor is refused there all the same
         value.requires_grad_(True)
-        err = NotImplementedError
     elif bad == "dtype":
         value = value.double()
         err = TypeError
@@ -223,6 +225,60 @@ def test_plan_rejects_wide_heads_and_levels():
         launch_plan(1, 10, 1, 512, 4, 4, 100, BF16)     # 64 vectors a head
     with pytest.raises(ValueError, match="levels"):
         launch_plan(1, 10, 1, 32, 9, 4, 100, BF16)
+
+
+def _grads(fn, value, shapes, loc, w, cotangent):
+    """Gradients of <fn(value, loc, w), cotangent> for value, loc and w."""
+    inputs = [torch.from_numpy(a).requires_grad_(True) for a in (value, loc, w)]
+    out = fn(inputs[0], shapes, inputs[1], inputs[2])
+    return torch.autograd.grad(out, inputs, torch.from_numpy(cotangent))
+
+
+@pytest.mark.parametrize("case", ["multilevel", "oob", "full_heads"])
+def test_plain_grads_match_jax(case, jax_msda):
+    """Gradients of the CPU path (plain autograd) against ``jax.grad`` of
+    ``ms_deform_attn_lax``, fp32: summation order and coordinate rounding
+    only, so 1e-4 of each gradient's largest magnitude."""
+    import jax
+    value, shapes, loc, w = make_inputs(case)
+    B, Lq = loc.shape[:2]
+    cotangent = np.random.RandomState(7).randn(
+        B, Lq, value.shape[2] * value.shape[3]).astype(np.float32)
+    want = jax.grad(lambda v, l, a: (jax_msda.ms_deform_attn_lax(
+        v, shapes, l, a) * cotangent).sum(), argnums=(0, 1, 2))(value, loc, w)
+    got = _grads(ms_deform_attn, value, shapes, loc, w, cotangent)
+    for name, g, ref in zip(("value", "loc", "w"), got, want):
+        ref = np.asarray(ref)
+        err = np.abs(g.numpy() - ref).max()
+        assert err <= 1e-4 * np.abs(ref).max(), (name, err)
+
+
+@pytest.mark.parametrize("needs", [(True, True, True), (True, False, False),
+                                   (False, True, True)])
+def test_function_recompute_backward_on_cpu(needs):
+    """``MSDeformAttnFunction`` driven on the CPU with the plain forward
+    injected where the card path has the kernel: its recompute backward
+    gives plain autograd's gradients exactly (the same computation), None
+    for inputs that need none, and counts one backward pass."""
+    value, shapes, loc, w = make_inputs("c16")
+    cotangent = np.random.RandomState(3).randn(
+        *loc.shape[:2], value.shape[2] * value.shape[3]).astype(np.float32)
+    want = _grads(ms_deform_attn_torch, value, shapes, loc, w, cotangent)
+    inputs = [torch.from_numpy(a).requires_grad_(n)
+              for a, n in zip((value, loc, w), needs)]
+    before = ms_deform_attn_cuda.backward_passes
+    out = MSDeformAttnFunction.apply(ms_deform_attn_torch, inputs[0], shapes,
+                                     inputs[1], inputs[2])
+    assert torch.equal(out, ms_deform_attn_torch(*(
+        t.detach() for t in inputs[:1]), shapes, inputs[1].detach(),
+        inputs[2].detach()))
+    out.backward(torch.from_numpy(cotangent))
+    assert ms_deform_attn_cuda.backward_passes == before + 1
+    for t, n, g in zip(inputs, needs, want):
+        if n:
+            assert torch.equal(t.grad, g)
+        else:
+            assert t.grad is None
 
 
 def _on_card(arrays, device, dtype):
@@ -383,3 +439,28 @@ def test_build_failure_raises(fault, tmp_path, monkeypatch):
     finally:
         build.load_library.cache_clear()
     assert not list((tmp_path / "_build").glob("*.so"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full_heads", "oob"])
+def test_function_on_card(case, cuda):
+    """Inputs that require grad on the card go through the Function: one
+    kernel launch forward, one backward pass, the plain version's
+    gradients."""
+    value, shapes, loc, w = make_inputs(case)
+    cotangent = np.random.RandomState(5).randn(
+        *loc.shape[:2], value.shape[2] * value.shape[3]).astype(np.float32)
+    want = _grads(ms_deform_attn_torch, value, shapes, loc, w, cotangent)
+    inputs = [torch.from_numpy(a).to(cuda).requires_grad_(True)
+              for a in (value, loc, w)]
+    launches = ms_deform_attn_cuda.launches
+    passes = ms_deform_attn_cuda.backward_passes
+    out = ms_deform_attn(inputs[0], shapes, inputs[1], inputs[2])
+    out.backward(torch.from_numpy(cotangent).to(cuda))
+    torch.cuda.synchronize()
+    assert ms_deform_attn_cuda.launches == launches + 1
+    assert ms_deform_attn_cuda.backward_passes == passes + 1
+    for t, g in zip(inputs, want):
+        # the plain backward on the card against the CPU's: summation order
+        err = (t.grad.cpu() - g).abs().max().item()
+        assert err <= 1e-4 * g.abs().max().item()

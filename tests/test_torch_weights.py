@@ -93,3 +93,33 @@ def test_s2d_stem_outside_7x7_window_is_refused():
     w4[0, 0, 0, 0] = 1.0          # w8[0, 0]: no 7x7 tap lands there
     with pytest.raises(ValueError):
         s2d_stem_to_7x7(w4)
+
+
+@pytest.mark.parametrize("with_box_refine", [True, False, None],
+                         ids=["deformable_refine", "deformable", "detr"])
+def test_converters_map_gradient_trees(with_box_refine):
+    """A JAX gradient tree has the params' structure, and the converters only
+    reshape, transpose and concatenate, which are linear: the converted tree
+    of x + 2y is, bit for bit, convert(x) + 2 convert(y), and it names every
+    parameter of the port with its shape (the train-step parity test maps
+    JAX gradients this way). Plain 7x7 stems: a space-to-depth stem's
+    gradient has taps outside the 7x7 window."""
+    rng = np.random.RandomState(2)
+    if with_box_refine is None:
+        jax_model = JaxDetr(space_to_depth=False, **SMALL)
+        convert, port = detr_state_dict_from_jax, Detr(**SMALL)
+    else:
+        jax_model = JaxDETR(with_box_refine=with_box_refine,
+                            space_to_depth=False, **SMALL)
+        port = DeformableDETR(with_box_refine=with_box_refine, **SMALL)
+
+        def convert(p):
+            return deformable_state_dict_from_jax(p, with_box_refine)
+    x = _random_params(jax_model, False, rng)
+    y = _random_params(jax_model, False, rng)
+    mixed = jax.tree_util.tree_map(lambda a, b: a + 2 * b, x, y)
+    cx, cy, cm = convert(x), convert(y), convert(mixed)
+    for name, p in port.named_parameters():
+        assert cm[name].shape == p.shape, name
+        assert np.array_equal(cm[name].numpy(),
+                              (cx[name] + 2 * cy[name]).numpy()), name
