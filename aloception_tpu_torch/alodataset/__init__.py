@@ -1,6 +1,7 @@
 """Datasets and transforms (PyTorch counterpart of
 ``aloception_tpu/alodataset``). Ported so far: the offline synthetic COCO
-detection sample and the fixed-size detection train transforms; COCO on disk
-and the other datasets wait in ROADMAP A10."""
+detection and Sintel flow samples and the fixed-size detection train
+transforms; the datasets on disk and the others wait in ROADMAP A10."""
 
 from .coco_detection import CocoBaseDataset  # noqa: F401
+from .sintel import SintelFlowDataset  # noqa: F401

@@ -1,1 +1,2 @@
-"""Model zoo (PyTorch): DETR and Deformable-DETR, inference and training."""
+"""Model zoo (PyTorch): DETR and Deformable-DETR, inference and training;
+RAFT optical flow, inference."""

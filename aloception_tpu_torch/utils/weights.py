@@ -3,7 +3,8 @@
 Exact inverses of the torch -> flax converters of
 ``aloception_tpu/utils/weights.py`` (``convert_resnet50_backbone``,
 ``convert_mha``, ``convert_detr_checkpoint``,
-``convert_deformable_checkpoint``): each takes flax params as
+``convert_deformable_checkpoint``, ``convert_raft_checkpoint``): each takes
+flax params as
 nested dicts of numpy arrays and returns float tensors under the reference
 torch names, so a model of the JAX package can be loaded into its port with
 ``load_state_dict(strict=True)``. Layer and block counts are read from the
@@ -176,6 +177,100 @@ def deformable_state_dict_from_jax(params: Mapping[str, Any],
                 _dense(sd, f"transformer.decoder.bbox_embed.{i}.layers.{j}",
                        mlp[f"layer{j}"])
     return sd
+
+
+def _raft_norm(sd: StateDict, name: str, p: Mapping[str, Any],
+               stats: Mapping[str, Any]):
+    """A flax norm's scale and bias; a BatchNorm's running statistics too
+    when ``stats`` has them (flax keeps no batch count: 0)."""
+    _norm(sd, name, p)
+    if stats:
+        sd[name + ".running_mean"] = _t(stats["mean"])
+        sd[name + ".running_var"] = _t(stats["var"])
+        sd[name + ".num_batches_tracked"] = torch.tensor(0)
+
+
+def raft_encoder_state_dict_from_jax(params: Mapping[str, Any],
+                                     stats: Mapping[str, Any],
+                                     prefix: str = "",
+                                     small: bool = False) -> StateDict:
+    """flax ``BasicEncoder`` (``small``: ``SmallEncoder``) params and
+    batch_stats -> its reference state_dict. Norms without params
+    (instance, none) write nothing; a block's downsample norm is written
+    under both of its reference names, ``normK`` and ``downsample.1``."""
+    sd: StateDict = {}
+    n_convs = 3 if small else 2
+    _conv(sd, prefix + "conv1", params["conv1"])
+    _conv(sd, prefix + "conv2", params["conv2"])
+    if "norm1" in params:
+        _raft_norm(sd, prefix + "norm1", params["norm1"], stats.get("norm1"))
+    for li in (1, 2, 3):
+        for b in (0, 1):
+            name, blk = f"{prefix}layer{li}.{b}", params[f"layer{li}_{b}"]
+            blk_stats = stats.get(f"layer{li}_{b}", {})
+            norms = [f"norm{ci}" for ci in range(1, n_convs + 1)]
+            for ci in range(1, n_convs + 1):
+                _conv(sd, f"{name}.conv{ci}", blk[f"conv{ci}"])
+            if "downsample" in blk:
+                _conv(sd, f"{name}.downsample.0", blk["downsample"])
+                norms.append(f"norm{n_convs + 1}")
+                if norms[-1] in blk:
+                    _raft_norm(sd, f"{name}.downsample.1", blk[norms[-1]],
+                               blk_stats.get(norms[-1]))
+            for norm in norms:
+                if norm in blk:
+                    _raft_norm(sd, f"{name}.{norm}", blk[norm],
+                               blk_stats.get(norm))
+    return sd
+
+
+def raft_update_state_dict_from_jax(params: Mapping[str, Any],
+                                    prefix: str = "",
+                                    small: bool = False) -> StateDict:
+    """flax ``BasicUpdateBlock`` (``small``: ``SmallUpdateBlock``) params ->
+    its reference state_dict."""
+    sd: StateDict = {}
+    for key, conv in params["encoder"].items():
+        _conv(sd, f"{prefix}encoder.{key}", conv)
+    for key in ("conv1", "conv2"):
+        _conv(sd, f"{prefix}flow_head.{key}", params["flow_head"][key])
+    if small:
+        for gate in ("convz", "convr", "convq"):
+            _conv(sd, f"{prefix}gru.{gate}", params["gru"][gate])
+    else:
+        for gate in ("convz", "convr", "convq"):
+            for i, axis in ((1, "h"), (2, "v")):
+                _conv(sd, f"{prefix}gru.{gate}{i}",
+                      params["gru"][f"{gate}_{axis}"])
+        _conv(sd, f"{prefix}mask.0", params["mask_conv1"])
+        _conv(sd, f"{prefix}mask.2", params["mask_conv2"])
+    return sd
+
+
+def raft_state_dict_from_jax(variables: Mapping[str, Any],
+                             small: bool = False) -> StateDict:
+    """flax ``RAFTBase`` variables ({"params", "batch_stats"}) -> the
+    reference RAFT (``small``: RAFT-small) state_dict, the inverse of
+    ``convert_raft_checkpoint``; the context encoder's BatchNorms take their
+    running statistics from ``batch_stats``."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: StateDict = {}
+    for enc in ("fnet", "cnet"):
+        sd.update(raft_encoder_state_dict_from_jax(
+            params[enc], stats.get(enc, {}), f"{enc}.", small))
+    sd.update(raft_update_state_dict_from_jax(params["update_block"],
+                                              "update_block.", small))
+    return sd
+
+
+def load_state_dict_file(path: str) -> StateDict:
+    """A local torch checkpoint (a state_dict, or a dict holding one under
+    ``state_dict`` or ``model``) with its ``model.`` or ``module.`` key
+    prefixes dropped, on the CPU."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("state_dict", ckpt.get("model", ckpt))
+    return {re.sub(r"^(model|module)\.", "", k): v for k, v in sd.items()}
 
 
 def detr_layer_state_dict_from_jax(layer: Mapping[str, Any],

@@ -60,6 +60,20 @@
    falls over 10 steps on one repeated batch.
 9. DETR-R50 (91 classes, float32) trains 8 batches of 16 at 384x384
    through ``make_detr_trainer(...).fit``: 2 optimizer updates.
+10. RAFT and RAFT-small in float32 (TF32 off) at bs1 368x496, 12
+    iterations: the card against the same model on the CPU, on the serving
+    path (``only_last``) and the last flow of the all-iterations path; the
+    bfloat16 RAFT against the float32 one on the card (printed).
+11. RAFT serving at ``bench.py::bench_raft``'s configuration (hidden 128,
+    context 128, fdim 256, 4 levels, radius 4, bfloat16, bs2 368x496, 12
+    iterations, ``only_last``; built with no device named, so on the
+    card): pairs/s, peak memory, the profile and syncs of one forward, and
+    device time by region of the forward and kind of op.
+12. RAFT's Frame path: 3 requests of 2 pairs of 436x1024 uint8 frames ->
+    ``Frame`` -> ``norm_minmax_sym`` -> ``batch_list`` -> ``Padder`` ->
+    RAFT -> ``unpad`` -> ``inference`` (a ``Flow`` per pair); latency and
+    syncs. Then ``commands.eval_on_sintel --sample --limit_samples 2`` on
+    the card. RAFT runs no kernel of the port.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
@@ -143,6 +157,11 @@ GATE_BATCH = 2
 # DETR-R50 training, short: 8 batches of 16 at 384 x 384, accumulate 4
 DETR_TRAIN_BATCH, DETR_TRAIN_SIZE, DETR_TRAIN_BATCHES = 16, (384, 384), 8
 KERNEL_SOURCES = ("ms_deform_attn", "hungarian")
+# RAFT (hidden 128, context 128, fdim 256, 4 levels, radius 4) at
+# bench_raft's configuration (bench.py:129-143): batch 2, 368x496, bfloat16,
+# 12 iterations, only_last; the Frame path takes Sintel-sized frames
+RAFT_BATCH, RAFT_HW, RAFT_ITERS = 2, (368, 496), 12
+SINTEL_HW = (436, 1024)
 
 
 def msda_inputs(shapes, B, Lq, channels, loc_range, dtype, device, seed=0):
@@ -475,7 +494,7 @@ def slice_phase(device):
     print(f"deformable_detr_r50_refine bs{BATCH} {SIZE[0]}px bf16: forward "
           f"{fwd_ms:.2f} ms, {BATCH / fwd_ms * 1e3:.2f} images/s, peak "
           f"memory {peak_gib:.2f} GiB")
-    profile_phase(m16, x, mask)
+    profile_phase(lambda: m16(x, mask))
     return launches, parity, m16
 
 
@@ -651,7 +670,7 @@ def detr_phase(device):
     print(f"detr_r50 bs{DETR_BATCH} {SIZE[0]}px bf16: forward {fwd_ms:.2f} "
           f"ms, {DETR_BATCH / fwd_ms * 1e3:.2f} images/s, peak memory "
           f"{peak_gib:.2f} GiB")
-    profile_phase(model, x, mask)
+    profile_phase(lambda: model(x, mask))
     return latencies, fwd_ms
 
 
@@ -694,12 +713,18 @@ def _device_busy(prof):
     return len(spans), busy, spans[-1][1] - spans[0][0]
 
 
-def profile_phase(model, x, mask, n_fwd=3):
+def profile_phase(fn, n_fwd=3):
+    """Profile ``n_fwd`` steady calls of ``fn`` (a forward, run under
+    inference mode): device activities, busy time and idle share from a
+    device-only trace, device time by aten op and by kernel, the MSDA
+    kernels' share where they ran, and the synchronising operations of one
+    call. Returns (the trace with host ops, device-busy us per call, idle
+    share, synchronising operations in one call)."""
     from torch.profiler import ProfilerActivity
 
     def forward():
         with torch.inference_mode():
-            model(x, mask)
+            fn()
 
     for _ in range(2):
         forward()
@@ -736,21 +761,23 @@ def profile_phase(model, x, mask, n_fwd=3):
               f"{r.count // n_fwd:5d} calls  {r.key[:100]}")
     msda = [r for r in rows if r.key.startswith("void (anonymous namespace)"
                                                 "::msda_forward_kernel")]
-    msda_us = sum(_device_us(r, self_only=True) for r in msda)
-    print(f"msda kernel: {msda_us / n_fwd / 1e3:.3f} ms per forward in "
-          f"{sum(r.count for r in msda) // n_fwd} calls, "
-          f"{msda_us / busy_host:.1%} of device-busy time")
-    for r in msda:
-        us = _device_us(r, self_only=True)
-        print(f"  {us / n_fwd / 1e3:8.3f} ms {r.count // n_fwd:3d} calls  "
-              f"{r.key.split('::', 1)[1].split('(')[0]}")
+    if msda:
+        msda_us = sum(_device_us(r, self_only=True) for r in msda)
+        print(f"msda kernel: {msda_us / n_fwd / 1e3:.3f} ms per forward in "
+              f"{sum(r.count for r in msda) // n_fwd} calls, "
+              f"{msda_us / busy_host:.1%} of device-busy time")
+        for r in msda:
+            us = _device_us(r, self_only=True)
+            print(f"  {us / n_fwd / 1e3:8.3f} ms {r.count // n_fwd:3d} calls  "
+                  f"{r.key.split('::', 1)[1].split('(')[0]}")
 
     with torch.inference_mode():
-        syncs = syncs_of(lambda: model(x, mask))
+        syncs = syncs_of(fn)
     print(f"sync-debug: {len(syncs)} synchronising CUDA operations in one "
           "forward")
     for s in syncs[:5]:
         print(f"  {s[:200]}")
+    return prof, busy / n_fwd, 1 - busy / window, len(syncs)
 
 
 def hungarian_inputs(M, nq, nt, choices, ties, seed):
@@ -1213,6 +1240,260 @@ def detr_train_phase(device):
                 launches=sum(c[2] for _, c, _, _ in per_batch))
 
 
+def raft_parity_phase(device):
+    """RAFT and RAFT-small in float32 (TF32 off), bs1 368x496, 12
+    iterations: the card against the same model on the CPU, the serving
+    path and the last flow of the all-iterations path, each gated at 1e-3 *
+    max(1, max|flow|); then the bfloat16 RAFT on the card against the
+    float32 one on the same weights (printed and checked finite, not
+    gated)."""
+    from aloception_tpu_torch.models.raft import raft, raft_small
+
+    g = torch.Generator().manual_seed(60)
+    f1, f2 = (torch.rand(1, 3, *RAFT_HW, generator=g) * 2 - 1
+              for _ in range(2))
+    d1, d2 = f1.to(device), f2.to(device)
+    errs = {}
+    for name, factory in (("raft", raft), ("raft_small", raft_small)):
+        cpu_model = factory(device="cpu",
+                            generator=torch.Generator().manual_seed(61))
+        gpu_model = copy.deepcopy(cpu_model).to(device)
+        for path in ("only_last", "list"):
+            kw = dict(iters=RAFT_ITERS, only_last=path == "only_last")
+            with torch.inference_mode():
+                want, got = cpu_model(f1, f2, **kw), gpu_model(d1, d2, **kw)
+            if path == "list":
+                if len(got) != RAFT_ITERS:
+                    raise AssertionError(f"{len(got)} flows for "
+                                         f"{RAFT_ITERS} iterations")
+                want, got = want[-1], got[-1]
+            err = (got.cpu() - want).abs().max().item()
+            tol = 1e-3 * max(1.0, want.abs().max().item())
+            print(f"{name} fp32 bs1 {RAFT_HW} {RAFT_ITERS} iterations, {path}"
+                  f": card vs cpu max|diff| {err:.3e} (tol {tol:.3e}, "
+                  f"max|flow| {want.abs().max().item():.3f})")
+            if not err <= tol:
+                raise AssertionError(f"{name} {path} on the card disagrees "
+                                     f"with the cpu: {err} > {tol}")
+            errs[f"{name}/{path}"] = err
+        if name == "raft":
+            m16 = raft(torch.bfloat16, device=device)
+            m16.load_state_dict(cpu_model.state_dict())
+            with torch.inference_mode():
+                a = m16(d1, d2, iters=RAFT_ITERS, only_last=True)
+                b = gpu_model(d1, d2, iters=RAFT_ITERS, only_last=True)
+            if not a.isfinite().all():
+                raise AssertionError("non-finite bf16 RAFT flow")
+            diff = (a - b).abs().max().item()
+            errs["raft/bf16_vs_fp32"] = diff
+            print(f"raft bf16 vs fp32 on the card, only_last: max|diff| "
+                  f"{diff:.3e} = {diff / b.abs().max().item():.3e} of "
+                  f"max|flow| (not gated)")
+    return errs
+
+
+def _labelled(fn, label):
+    from torch.profiler import record_function
+
+    def run(*args, **kwargs):
+        with record_function(label):
+            return fn(*args, **kwargs)
+    return run
+
+
+RAFT_REGIONS = ("fnet", "cnet", "volume", "pyramid", "lookup", "motion "
+                "encoder", "gru", "flow head", "mask head", "upsample")
+
+
+def raft_regions(model):
+    """Patches that label each region of a RAFT forward (RAFT_REGIONS) with
+    ``record_function``, for ``raft_breakdown``."""
+    import contextlib
+    import importlib
+    raft_mod = importlib.import_module("aloception_tpu_torch.models.raft.raft")
+    from aloception_tpu_torch.ops.correlation import CorrPyramid
+    ub = model.update_block
+    stack = contextlib.ExitStack()
+    for obj, attr, label in (
+            (model.fnet, "forward", "fnet"), (model.cnet, "forward", "cnet"),
+            (raft_mod, "corr_volume", "volume"),
+            (raft_mod, "corr_pyramid", "pyramid"),
+            (raft_mod, "CorrPyramid", "pyramid"),
+            (CorrPyramid, "lookup", "lookup"),
+            (ub.encoder, "forward", "motion encoder"),
+            (ub.gru, "forward", "gru"), (ub.flow_head, "forward", "flow head"),
+            (ub.mask, "forward", "mask head"),
+            (raft_mod, "convex_upsample", "upsample")):
+        stack.enter_context(mock.patch.object(
+            obj, attr, _labelled(getattr(obj, attr), label)))
+    return stack
+
+
+def _op_kind(names):
+    """The kind of the op whose device time it is, from its name and its
+    callers' (innermost first)."""
+    kinds = (("convolution", "conv"), ("instance_norm", "norm"),
+             ("batch_norm", "norm"), ("group_norm", "norm"),
+             ("bmm", "matmul"), ("aten::mm", "matmul"),
+             ("avg_pool2d", "avg_pool"), ("gather", "gather"),
+             ("aten::cat", "cat"), ("aten::to", "cast/copy"),
+             ("aten::copy_", "cast/copy"))
+    for name in names:
+        for key, kind in kinds:
+            if key in name:
+                return kind
+    return "element-wise"
+
+
+def raft_breakdown(prof, busy_us, n_fwd=3):
+    """Device ms per forward of each labelled region, split by the kind of
+    op that launched the kernels (convolution, norm, matmul, avg_pool,
+    gather, cat, cast/copy, element-wise). Returns {region: {kind: ms}}."""
+    from torch.autograd import DeviceType
+    table = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        us = _device_us(e, self_only=True)
+        if not us:
+            continue
+        names, region, a = [], "other", e
+        while a is not None:
+            names.append(a.name)
+            if region == "other" and a.name in RAFT_REGIONS:
+                region = a.name
+            a = a.cpu_parent
+        kinds = table.setdefault(region, {})
+        kind = _op_kind(names)
+        kinds[kind] = kinds.get(kind, 0.0) + us / n_fwd / 1e3
+    total = sum(sum(k.values()) for k in table.values())
+    print(f"raft device ms per forward by region and kind of op (self "
+          f"times; {total:.3f} ms traced against {busy_us / 1e3:.3f} ms "
+          f"device-busy):")
+    for region, kinds in sorted(table.items(),
+                                key=lambda kv: -sum(kv[1].values())):
+        ms = sum(kinds.values())
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in
+                          sorted(kinds.items(), key=lambda kv: -kv[1]))
+        print(f"  {region:15s} {ms:8.3f} ms {ms * 1e3 / busy_us:6.1%}  "
+              f"({parts})")
+    by_kind = {}
+    for kinds in table.values():
+        for k, v in kinds.items():
+            by_kind[k] = by_kind.get(k, 0.0) + v
+    print("  by kind: " + ", ".join(
+        f"{k} {v:.3f} ms {v * 1e3 / busy_us:.1%}"
+        for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])))
+    return table
+
+
+def raft_serving_phase(device):
+    """RAFT (random weights, bfloat16, built with no device named, so on
+    the card) at bench_raft's configuration: bs2 368x496, 12 iterations,
+    only_last. Pairs/s from CUDA events (mean of 10 forwards after 2
+    warm-ups), peak memory, the profile and the synchronising operations of
+    one forward (``profile_phase``), then device time by region and kind of
+    op from a trace with the regions labelled."""
+    from aloception_tpu_torch.models.raft import raft
+
+    model = raft(torch.bfloat16,
+                 generator=torch.Generator(device=device).manual_seed(0))
+    if any(p.device != device for p in model.parameters()):
+        raise AssertionError("raft() with no device did not build on the "
+                             "card")
+    g = torch.Generator(device=device).manual_seed(62)
+    f1, f2 = (torch.randn(RAFT_BATCH, 3, *RAFT_HW, device=device, generator=g)
+              for _ in range(2))
+
+    def forward():
+        return model(f1, f2, iters=RAFT_ITERS, only_last=True)
+
+    with torch.inference_mode():
+        flow = forward()
+    if not (flow.shape == (RAFT_BATCH, 2) + RAFT_HW
+            and flow.dtype == torch.float32 and flow.isfinite().all()):
+        raise AssertionError(f"bad RAFT flow {flow.shape} {flow.dtype}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(forward, iters=10, warmup=2)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"raft bs{RAFT_BATCH} {RAFT_HW} bf16 {RAFT_ITERS} iterations "
+          f"only_last: forward {fwd_ms:.3f} ms, "
+          f"{RAFT_BATCH / fwd_ms * 1e3:.2f} pairs/s, peak memory "
+          f"{peak_gib:.3f} GiB")
+    _, busy_us, idle, syncs = profile_phase(forward)
+    # the regions' labels cost host time: a trace of their own
+    from torch.profiler import ProfilerActivity
+    with raft_regions(model), torch.inference_mode():
+        prof = _trace(forward, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                      3)
+    regions = raft_breakdown(prof, busy_us)
+    return model, dict(forward_ms=fwd_ms, pairs_per_s=RAFT_BATCH / fwd_ms * 1e3,
+                       busy_ms=busy_us / 1e3, idle=idle, peak_gib=peak_gib,
+                       syncs=syncs, regions=regions)
+
+
+def raft_frame_request(model, images):
+    """Pairs (images[0], images[1]), (images[2], images[3]) of uint8 CHW
+    frames -> Frame -> norm_minmax_sym -> batch_list -> Padder -> RAFT
+    (only_last) -> unpad -> inference: a Flow per pair."""
+    from aloception_tpu_torch.aloscene import Frame, batch_list
+    from aloception_tpu_torch.models.raft import Padder, inference
+
+    frames = [Frame(x).norm_minmax_sym() for x in images]
+    f1, f2 = (batch_list(frames[k::2]).as_layout(("B", "C", "H", "W"))
+              for k in (0, 1))
+    padder = Padder(f1.shape)
+    return inference(padder.unpad(model(*padder.pad(f1, f2),
+                                        iters=RAFT_ITERS, only_last=True)))
+
+
+def raft_frame_phase(model, device):
+    """3 requests of 2 pairs of Sintel-sized uint8 frames made on the card
+    from a seed, down the Frame path; Flow names and shapes, host latency
+    per request, the synchronising operations of one request."""
+    from aloception_tpu_torch.aloscene import Flow
+
+    g = torch.Generator(device=device).manual_seed(63)
+    requests = [[torch.randint(0, 256, (3,) + SINTEL_HW, dtype=torch.uint8,
+                               device=device, generator=g) for _ in range(4)]
+                for _ in range(N_REQUESTS)]
+    torch.cuda.synchronize()
+    latencies, results = [], []
+    for images in requests:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            results.append(raft_frame_request(model, images))
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t0)
+    for flows in results:
+        if len(flows) != 2:
+            raise AssertionError(f"{len(flows)} flows for 2 pairs")
+        for f in flows:
+            if not (isinstance(f, Flow) and f.names == ("C", "H", "W")
+                    and f.shape == (2,) + SINTEL_HW and f.array.isfinite().all()):
+                raise AssertionError(f"malformed flow {f!r}")
+    with torch.inference_mode():
+        syncs = len(syncs_of(lambda: raft_frame_request(model, requests[0])))
+    print(f"raft Frame path: {N_REQUESTS} requests of 2 pairs of uint8 "
+          f"{SINTEL_HW} frames (padded to a multiple of 8) bf16, latency s "
+          f"{[round(t, 4) for t in latencies]}; synchronising operations in "
+          f"one request: {syncs}")
+    return dict(latency_s=latencies, syncs=syncs)
+
+
+def raft_eval_phase():
+    """``eval_on_sintel --sample --limit_samples 2`` on the card (random
+    weights: the EPE proves that the entry point runs, nothing more)."""
+    import math
+    from aloception_tpu_torch.commands import eval_on_sintel
+    epe = eval_on_sintel.main(["--sample", "--limit_samples", "2"])
+    if not math.isfinite(epe):
+        raise AssertionError(f"eval_on_sintel EPE {epe}")
+    return epe
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: "
@@ -1257,6 +1538,12 @@ def main():
     train = train_phase(device)
     torch.cuda.empty_cache()
     detr_train = detr_train_phase(device)
+    torch.cuda.empty_cache()
+    raft_errs = raft_parity_phase(device)
+    raft_model, raft_serve = raft_serving_phase(device)
+    raft_frame = raft_frame_phase(raft_model, device)
+    del raft_model
+    raft_epe = raft_eval_phase()
 
     enc, dec = sites["encoder"], sites["decoder"]
     msda_train, msda_backward, hung_train = train["launches"]
@@ -1315,7 +1602,13 @@ def main():
                   "detr_frames_ms": detr_train["frames_ms"],
                   "deformable_peak_gib": train["peak_gib"],
                   "deformable_profile": train["profile"],
-                  "detr_step_ms": detr_train["step_ms"]}}))
+                  "detr_step_ms": detr_train["step_ms"]},
+        # RAFT runs no kernel of the port: cuDNN, cuBLAS and PyTorch ops
+        "raft": {"parity": raft_errs,
+                 "regions": raft_serve.pop("regions"), **raft_serve,
+                 "frame_latency_s": raft_frame["latency_s"],
+                 "frame_syncs": raft_frame["syncs"],
+                 "eval_sintel_sample_epe": raft_epe}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

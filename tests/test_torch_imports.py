@@ -30,6 +30,16 @@ def test_port_has_sources():
     assert len(SOURCES) >= 10
 
 
+@pytest.mark.parametrize("module", [
+    "ops/warp.py", "ops/correlation.py", "aloscene/flow.py",
+    "models/raft/__init__.py", "models/raft/extractor.py",
+    "models/raft/update.py", "models/raft/utils.py", "models/raft/raft.py",
+    "alodataset/sintel.py", "commands/eval_on_sintel.py"])
+def test_raft_modules_are_checked(module):
+    """The RAFT slice's modules are among the sources checked below."""
+    assert PKG / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PKG)))
 def test_no_jax_import(path):
     roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))

@@ -22,6 +22,24 @@ def perturb(tree, rng: np.random.RandomState):
     return jax.tree_util.tree_map_with_path(move, tree)
 
 
+def init_like(module, rng: np.random.RandomState, *args, **kwargs):
+    """Numpy variables of the shapes ``module.init(key, *args, **kwargs)``
+    gives, drawn as flax's defaults draw them (LeCun-normal kernels, zero
+    biases and means, unit scales and variances), without compiling the
+    init: ``jax.eval_shape`` traces it only."""
+    shapes = jax.eval_shape(
+        lambda *a: module.init(jax.random.PRNGKey(0), *a, **kwargs), *args)
+
+    def draw(path, s):
+        name = getattr(path[-1], "key", None)
+        if name == "kernel":
+            fan_in = int(np.prod(s.shape[:-1]))
+            return (rng.randn(*s.shape) / np.sqrt(fan_in)).astype(np.float32)
+        fill = 1.0 if name in ("scale", "var") else 0.0
+        return np.full(s.shape, fill, np.float32)
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
 def t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
