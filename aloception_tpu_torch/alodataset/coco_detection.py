@@ -3,8 +3,9 @@
 
 ``sample=True`` gives the JAX package's 12 deterministic synthetic frames
 (coloured rectangles as objects on noise), made from the same numpy seeds, so
-the two packages give the same images, boxes and labels for an index. COCO
-on disk waits in ROADMAP A10.
+the two packages give the same images, boxes, labels and, with
+``return_masks``, per-object segmentation masks for an index. COCO on disk
+waits in ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -14,12 +15,14 @@ from typing import Callable, Iterator, List, Optional
 import numpy as np
 import torch
 
-from ..aloscene import BoundingBoxes2D, Frame, Labels
+from ..aloscene import BoundingBoxes2D, Frame, Labels, Mask
 
 
 class CocoBaseDataset:
     """getitem -> Frame (CHW float32, normalization "255") with boxes2d
-    (relative xcyc) carrying ``Labels`` with ``labels_names``."""
+    (relative xcyc) carrying ``Labels`` with ``labels_names`` and, with
+    ``return_masks``, a ``segmentation`` child: a (N, H, W) ``Mask`` of the
+    objects, with the same ``Labels``."""
 
     SAMPLE_CLASSES = ("person", "car", "dog", "chair")
 
@@ -30,10 +33,7 @@ class CocoBaseDataset:
             raise NotImplementedError(
                 "COCO on disk is not ported yet (ROADMAP A10); pass "
                 "sample=True")
-        if return_masks:
-            raise NotImplementedError(
-                "segmentation masks (panoptic training) are not ported yet "
-                "(ROADMAP A8)")
+        self.return_masks = return_masks
         self.transform_fn = transform_fn
         self.items = list(range(12))
         self.labels_names = list(self.SAMPLE_CLASSES)
@@ -47,7 +47,7 @@ class CocoBaseDataset:
         H, W = rng.randint(180, 260), rng.randint(240, 340)
         img = rng.uniform(0, 80, (3, H, W)).astype(np.float32)
         n = rng.randint(1, 5)
-        boxes, labels = [], []
+        boxes, labels, masks = [], [], []
         for _ in range(n):
             w, h = rng.uniform(0.1, 0.4), rng.uniform(0.1, 0.4)
             xc = rng.uniform(w / 2, 1 - w / 2)
@@ -58,12 +58,18 @@ class CocoBaseDataset:
             img[:, y0:y1, x0:x1] = rng.uniform(100, 255, (3, 1, 1))
             boxes.append([xc, yc, w, h])
             labels.append(cls)
+            m = np.zeros((H, W), np.float32)
+            m[y0:y1, x0:x1] = 1.0
+            masks.append(m)
         frame = Frame(torch.from_numpy(img), normalization="255")
         lab = Labels(torch.tensor(labels, dtype=torch.float32),
                      labels_names=self.labels_names)
         frame.append_boxes2d(BoundingBoxes2D(
             torch.tensor(np.asarray(boxes, np.float32)), boxes_format="xcyc",
             absolute=False, labels=lab))
+        if self.return_masks:
+            frame.append_segmentation(Mask(torch.from_numpy(np.stack(masks)),
+                                           labels=lab.clone()))
         return frame
 
     def __getitem__(self, idx: int) -> Frame:

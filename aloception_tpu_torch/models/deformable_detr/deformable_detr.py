@@ -3,7 +3,9 @@
 
 Multi-scale (4-level) input projections with GroupNorm, 300 queries from a
 2x-hidden embedding, sigmoid-focal classification, optional iterative box
-refinement through per-layer box heads wired into the decoder. Parameters
+refinement through per-layer box heads wired into the decoder. With
+``return_intermediate`` the backbone returns layer1-4 (the levels stay
+C3-C5) and the output dict carries what the panoptic head reads. Parameters
 carry the reference ``state_dict`` names (``backbone.0.body.*``,
 ``input_proj.{l}.0/1``, ``query_embed.weight``, ``transformer.*``,
 ``class_embed.{i}``, ``bbox_embed.{i}.layers.{j}``).
@@ -34,17 +36,23 @@ class DeformableDETR(nn.Module):
                  num_encoder_layers: int = 6, num_decoder_layers: int = 6,
                  dim_feedforward: int = 1024, n_points: int = 4,
                  dropout: float = 0.1, with_box_refine: bool = False,
+                 return_intermediate: bool = False,
                  stage_sizes: Sequence[int] = (3, 4, 6, 3), device=None,
                  generator: Optional[torch.Generator] = None):
         """Parameters are drawn from ``generator`` (a fresh one seeded with 0
         on ``device`` when None). ``dropout`` acts in train mode only."""
         super().__init__()
         self.hidden_dim = hidden_dim
+        self.nheads = nheads
         self.num_classes = num_classes
         self.num_queries = num_queries
         self.num_decoder_layers = num_decoder_layers
-        self.backbone = nn.ModuleList([Backbone(
-            ("layer2", "layer3", "layer4"), stage_sizes, device=device)])
+        self.return_intermediate = return_intermediate
+        layers = ("layer2", "layer3", "layer4")
+        if return_intermediate:
+            layers = ("layer1",) + layers
+        self.backbone = nn.ModuleList([Backbone(layers, stage_sizes,
+                                                device=device)])
         in_channels = (512, 1024, 2048)
         self.input_proj = nn.ModuleList(
             [nn.Sequential(nn.Conv2d(c, hidden_dim, 1, device=device),
@@ -88,11 +96,15 @@ class DeformableDETR(nn.Module):
         """images: (B, H, W, 3) normalised; mask: (B, H, W), 1 = padded.
         Returns pred_logits (B, Nq, classes), pred_boxes (B, Nq, 4) as
         relative (cx, cy, w, h) in float32, and the other decoder layers'
-        outputs under aux_outputs."""
+        outputs under aux_outputs. With return_intermediate also
+        dec_outputs, enc_outputs (B, Lv, C), and at the C5 level, the one
+        the panoptic head reads: enc_outputs_spatial (B, Hp, Wp, C), proj_src
+        (its projected map after GroupNorm, NHWC) and feat_mask; bb_outputs
+        and bb_masks (layer1-3, fine to coarse, NHWC)."""
         dtype = self.query_embed.weight.dtype
         feats = self.backbone[0](images.to(dtype), mask)
         srcs, masks = [], []
-        for lvl, (f, m) in enumerate(feats):
+        for lvl, (f, m) in enumerate(feats[-3:]):     # C3, C4, C5
             srcs.append(self.input_proj[lvl](f.permute(0, 3, 1, 2)))
             masks.append(m)
         # extra level: stride-2 conv on C5
@@ -103,9 +115,10 @@ class DeformableDETR(nn.Module):
             m, num_pos_feats=self.hidden_dim // 2, center=True, dtype=dtype)
             for m in masks]
 
-        hs, init_reference, inter_references, _, _, _ = self.transformer(
-            [s.permute(0, 2, 3, 1) for s in srcs], masks, pos_embeds,
-            self.query_embed.weight)
+        hs, init_reference, inter_references, memory, spatial_shapes, _ = \
+            self.transformer(
+                [s.permute(0, 2, 3, 1) for s in srcs], masks, pos_embeds,
+                self.query_embed.weight)
 
         all_logits, all_boxes = [], []
         for lvl in range(self.num_decoder_layers):
@@ -120,10 +133,23 @@ class DeformableDETR(nn.Module):
             all_logits.append(logits)
             all_boxes.append(boxes)
 
-        return {"pred_logits": all_logits[-1], "pred_boxes": all_boxes[-1],
-                "aux_outputs": [{"pred_logits": l, "pred_boxes": b}
-                                for l, b in zip(all_logits[:-1],
-                                                all_boxes[:-1])]}
+        out = {"pred_logits": all_logits[-1], "pred_boxes": all_boxes[-1],
+               "aux_outputs": [{"pred_logits": l, "pred_boxes": b}
+                               for l, b in zip(all_logits[:-1],
+                                               all_boxes[:-1])]}
+        if self.return_intermediate:
+            plvl = len(srcs) - 2
+            start = sum(h * w for h, w in spatial_shapes[:plvl])
+            Hp, Wp = spatial_shapes[plvl]
+            out.update(
+                dec_outputs=hs, enc_outputs=memory,
+                enc_outputs_spatial=memory[:, start:start + Hp * Wp].reshape(
+                    memory.shape[0], Hp, Wp, self.hidden_dim),
+                proj_src=srcs[plvl].permute(0, 2, 3, 1),
+                feat_mask=masks[plvl],
+                bb_outputs=[f for f, _ in feats[:-1]],
+                bb_masks=[m for _, m in feats[:-1]])
+        return out
 
 
 @torch.no_grad()

@@ -4,7 +4,10 @@
 Fixed-size training only: every frame is flipped with p = 0.5, resized with
 its aspect ratio to a shorter side drawn from ``scales``, then resized to
 ``size``, and normalised for the ResNet. The reference's multi-scale
-geometry (``size=None``) and COCO on disk wait in ROADMAP A10.
+geometry (``size=None``) and COCO on disk wait in ROADMAP A10. With
+``return_masks`` the frames carry their objects' ``segmentation`` Masks,
+which flip and resize (bilinearly, so a resized mask is soft) with them;
+a batch keeps them as a per-frame list.
 """
 
 from __future__ import annotations
@@ -47,7 +50,8 @@ class CocoDetection2Detr:
     def __init__(self, batch_size: int = 2, sample: bool = False,
                  size: Optional[Tuple[int, int]] = (480, 640),
                  scales: Optional[Sequence[int]] = None,
-                 max_targets: int = 100, seed: int = 0):
+                 max_targets: int = 100, seed: int = 0,
+                 return_masks: bool = False):
         if size is None:
             raise NotImplementedError(
                 "multi-scale training (size=None) is not ported yet (ROADMAP "
@@ -69,9 +73,11 @@ class CocoDetection2Detr:
             T.Resize(self.size)])
         val = T.Resize(self.size)
         self.train_dataset = CocoBaseDataset(
-            sample=True, transform_fn=lambda f: train(f).norm_resnet())
+            sample=True, transform_fn=lambda f: train(f).norm_resnet(),
+            return_masks=return_masks)
         self.val_dataset = CocoBaseDataset(
-            sample=True, transform_fn=lambda f: val(f).norm_resnet())
+            sample=True, transform_fn=lambda f: val(f).norm_resnet(),
+            return_masks=return_masks)
         self.label_names = self.train_dataset.labels_names
 
     def train_dataloader(self):

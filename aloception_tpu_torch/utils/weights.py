@@ -3,7 +3,8 @@
 Exact inverses of the torch -> flax converters of
 ``aloception_tpu/utils/weights.py`` (``convert_resnet50_backbone``,
 ``convert_mha``, ``convert_detr_checkpoint``,
-``convert_deformable_checkpoint``, ``convert_raft_checkpoint``): each takes
+``convert_deformable_checkpoint``, ``convert_panoptic_checkpoint``,
+``convert_raft_checkpoint``): each takes
 flax params as
 nested dicts of numpy arrays and returns float tensors under the reference
 torch names, so a model of the JAX package can be loaded into its port with
@@ -308,4 +309,39 @@ def detr_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
     mlp = params["bbox_embed"]
     for j in range(len(mlp)):
         _dense(sd, f"bbox_embed.layers.{j}", mlp[f"layer{j}"])
+    return sd
+
+
+def panoptic_head_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """flax ``PanopticHead`` params (``bbox_attention`` and ``mask_head``)
+    -> the reference names ``bbox_attention.{q,k}_linear``,
+    ``mask_head.lay{i}``/``gn{i}``/``adapter{i}``/``out_lay``."""
+    sd: StateDict = {}
+    for name in ("q_linear", "k_linear"):
+        _dense(sd, f"bbox_attention.{name}", params["bbox_attention"][name])
+    mh = params["mask_head"]
+    for i in range(1, 6):
+        _conv(sd, f"mask_head.lay{i}", mh[f"lay{i}_conv"])
+        _norm(sd, f"mask_head.gn{i}", mh[f"lay{i}_gn"])
+    for i in range(1, 4):
+        _conv(sd, f"mask_head.adapter{i}", mh[f"adapter{i}"])
+    _conv(sd, "mask_head.out_lay", mh["out_lay"])
+    return sd
+
+
+def panoptic_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """flax ``DetrPanoptic`` variables ({"params": ...}, or the params
+    alone: ``detector`` and ``panoptic_head``) -> ``DetrPanoptic``
+    state_dict: the detector's under ``detr.``, then the head's. A
+    Deformable-DETR detector (``input_proj0``) is told from DETR by its
+    params, box refinement by its per-layer heads (``class_embed1``)."""
+    params = params.get("params", params)
+    det = params["detector"]
+    if "input_proj0" in det:
+        det_sd = deformable_state_dict_from_jax(
+            det, with_box_refine="class_embed1" in det)
+    else:
+        det_sd = detr_state_dict_from_jax(det)
+    sd = {"detr." + k: v for k, v in det_sd.items()}
+    sd.update(panoptic_head_state_dict_from_jax(params["panoptic_head"]))
     return sd

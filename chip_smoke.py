@@ -8,7 +8,8 @@
    kernel against its plain PyTorch version on the card, in float32 and
    bfloat16: at the
    encoder and decoder (level-split) calls of Deformable-DETR-R50 at 640 px
-   and batch 16 (the main path's plans), at a small odd shape, with narrow
+   and batch 16 (the main path's plans) and at batch 4 (the panoptic
+   path's), at a small odd shape, with narrow
    vectors, with locations outside the levels, NaN and far-outside points,
    and every instance of its template under a forced launch plan. At both
    bs16 bf16 sites it holds the kernel against the plain version on the
@@ -67,13 +68,30 @@
 11. RAFT serving at ``bench.py::bench_raft``'s configuration (hidden 128,
     context 128, fdim 256, 4 levels, radius 4, bfloat16, bs2 368x496, 12
     iterations, ``only_last``; built with no device named, so on the
-    card): pairs/s, peak memory, the profile and syncs of one forward, and
-    device time by region of the forward and kind of op.
+    card): pairs/s, peak memory, the host's time to enqueue a forward and
+    per device activity, the profile and syncs of one forward, and device
+    time by region of the forward and kind of op.
 12. RAFT's Frame path: 3 requests of 2 pairs of 436x1024 uint8 frames ->
     ``Frame`` -> ``norm_minmax_sym`` -> ``batch_list`` -> ``Padder`` ->
     RAFT -> ``unpad`` -> ``inference`` (a ``Flow`` per pair); latency and
     syncs. Then ``commands.eval_on_sintel --sample --limit_samples 2`` on
     the card. RAFT runs no kernel of the port.
+13. Panoptic: the head on DETR-R50 (``DetrPanoptic()``, 100 queries) and on
+    Deformable-DETR-R50 without refinement (300 queries), 250 classes,
+    random weights. DETR-R50 panoptic in float32 at bs1 on a padded 384x512
+    batch, the card against the CPU; Deformable panoptic in float32 at bs2
+    640 px, the MSDA kernel path against the plain path. Then each in
+    bfloat16 at 640x640 (DETR bs8, Deformable bs4, built with no device
+    named): the outputs against the same weights in float32 on the card,
+    whole and the head alone; images/s, peak memory, the detector and the
+    head timed alone, profile (device-busy, idle share, 0 syncs a forward),
+    device ms of the detector, the attention maps and the mask head, MSDA
+    launches a forward (12 for Deformable); 3 Frame-path
+    requests of 4 uint8 frames of mixed sizes -> ``inference_with_masks``
+    (per-frame ``BoundingBoxes2D`` and ``Mask`` at the padded size; one sync
+    a request); then ``commands.eval_on_coco --sample --limit_batches 2``
+    for ``--model panoptic_deformable`` and ``--model panoptic`` on the
+    card (AP and PQ).
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
@@ -81,6 +99,7 @@ is then not 0 and no result line is printed. Needs a CUDA card; never
 imports JAX.
 """
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -99,6 +118,9 @@ KERNEL_CASES = {
     "encoder": (LEVELS_640, 16, 8500, C, (0.0, 1.0)),
     # the decoder site: its plan splits the levels across sub-groups
     "decoder": (LEVELS_640, 16, 300, C, (0.0, 1.0)),
+    # the panoptic Deformable path's calls at its served batch of 4
+    "encoder_bs4": (LEVELS_640, 4, 8500, C, (0.0, 1.0)),
+    "decoder_bs4": (LEVELS_640, 4, 300, C, (0.0, 1.0)),
     "odd": (((1, 5), (2, 2), (3, 7)), 2, 37, 16, (0.0, 1.0)),
     # heads of 3 narrow vectors (8 B fp32, 4 B bf16) and a 1x1 level
     "narrow": (((9, 11), (1, 1), (4, 3), (2, 5)), 2, 37, 6, (-0.2, 1.2)),
@@ -162,6 +184,31 @@ KERNEL_SOURCES = ("ms_deform_attn", "hungarian")
 # 12 iterations, only_last; the Frame path takes Sintel-sized frames
 RAFT_BATCH, RAFT_HW, RAFT_ITERS = 2, (368, 496), 12
 SINTEL_HW = (436, 1024)
+# panoptic: the head on DETR-R50 (100 queries) and on Deformable-DETR-R50
+# without refinement (300 queries, as eval_on_coco builds it), 250 classes,
+# bfloat16 at 640x640, DETR at batch 8 and Deformable at batch 4; the fp32
+# gates (DETR card vs CPU at bs1 on a padded 384x512 batch, Deformable
+# kernel vs plain path at bs2 640 px); Frame-path requests of 4 frames of
+# mixed sizes
+PANOPTIC_CLASSES = 250
+PANOPTIC_BATCH = {"detr_r50_panoptic": 8, "deformable_detr_r50_panoptic": 4}
+PANOPTIC_GATE_HW, PANOPTIC_GATE_FRAME = (384, 512), (352, 480)
+PANOPTIC_FRAMES = ((480, 640), (427, 640), (427, 640), (480, 640))
+PANOPTIC_REGIONS = ("detector", "bbox_attention", "mask_head")
+# the served bf16 outputs against the same weights in float32 on the same
+# inputs, max|diff| / max(1, max|ref|) over masks, logits and boxes: the
+# whole forward (bf16 through the detector's 12 layers), and the head alone
+# on the float32 detector's outputs rounded to bf16 (bf16's unit roundoff
+# is 2^-8, 3.9e-3)
+PANOPTIC_BF16_TOL = {"forward": 1e-1, "head": 5e-2}
+# eval_on_coco's thresholds: softmax over the background class for DETR,
+# sigmoid at 0.2 for Deformable-DETR
+PANOPTIC_INFERENCE = {
+    "detr_r50_panoptic": dict(threshold=0.0,
+                              background_class=PANOPTIC_CLASSES,
+                              activation_fn="softmax"),
+    "deformable_detr_r50_panoptic": dict(threshold=0.2,
+                                         activation_fn="sigmoid")}
 
 
 def msda_inputs(shapes, B, Lq, channels, loc_range, dtype, device, seed=0):
@@ -719,7 +766,8 @@ def profile_phase(fn, n_fwd=3):
     device-only trace, device time by aten op and by kernel, the MSDA
     kernels' share where they ran, and the synchronising operations of one
     call. Returns (the trace with host ops, device-busy us per call, idle
-    share, synchronising operations in one call)."""
+    share, synchronising operations in one call, device activities per
+    call)."""
     from torch.profiler import ProfilerActivity
 
     def forward():
@@ -777,7 +825,7 @@ def profile_phase(fn, n_fwd=3):
           "forward")
     for s in syncs[:5]:
         print(f"  {s[:200]}")
-    return prof, busy / n_fwd, 1 - busy / window, len(syncs)
+    return prof, busy / n_fwd, 1 - busy / window, len(syncs), n_act / n_fwd
 
 
 def hungarian_inputs(M, nq, nt, choices, ties, seed):
@@ -1307,7 +1355,7 @@ RAFT_REGIONS = ("fnet", "cnet", "volume", "pyramid", "lookup", "motion "
 
 def raft_regions(model):
     """Patches that label each region of a RAFT forward (RAFT_REGIONS) with
-    ``record_function``, for ``raft_breakdown``."""
+    ``record_function``, for ``region_breakdown``."""
     import contextlib
     import importlib
     raft_mod = importlib.import_module("aloception_tpu_torch.models.raft.raft")
@@ -1345,10 +1393,11 @@ def _op_kind(names):
     return "element-wise"
 
 
-def raft_breakdown(prof, busy_us, n_fwd=3):
-    """Device ms per forward of each labelled region, split by the kind of
-    op that launched the kernels (convolution, norm, matmul, avg_pool,
-    gather, cat, cast/copy, element-wise). Returns {region: {kind: ms}}."""
+def region_breakdown(prof, busy_us, regions, title, n_fwd=3):
+    """Device ms per forward of each labelled region of ``regions`` (the
+    rest is "other"), split by the kind of op that launched the kernels
+    (convolution, norm, matmul, avg_pool, gather, cat, cast/copy,
+    element-wise). Returns {region: {kind: ms}}."""
     from torch.autograd import DeviceType
     table = {}
     for e in prof.events():
@@ -1360,14 +1409,14 @@ def raft_breakdown(prof, busy_us, n_fwd=3):
         names, region, a = [], "other", e
         while a is not None:
             names.append(a.name)
-            if region == "other" and a.name in RAFT_REGIONS:
+            if region == "other" and a.name in regions:
                 region = a.name
             a = a.cpu_parent
         kinds = table.setdefault(region, {})
         kind = _op_kind(names)
         kinds[kind] = kinds.get(kind, 0.0) + us / n_fwd / 1e3
     total = sum(sum(k.values()) for k in table.values())
-    print(f"raft device ms per forward by region and kind of op (self "
+    print(f"{title} device ms per forward by region and kind of op (self "
           f"times; {total:.3f} ms traced against {busy_us / 1e3:.3f} ms "
           f"device-busy):")
     for region, kinds in sorted(table.items(),
@@ -1422,16 +1471,29 @@ def raft_serving_phase(device):
           f"only_last: forward {fwd_ms:.3f} ms, "
           f"{RAFT_BATCH / fwd_ms * 1e3:.2f} pairs/s, peak memory "
           f"{peak_gib:.3f} GiB")
-    _, busy_us, idle, syncs = profile_phase(forward)
+    _, busy_us, idle, syncs, n_act = profile_phase(forward)
+    # the host's time to enqueue a forward (no sync: the device idles most
+    # of the window, so the call returns when its last launch is queued)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for _ in range(10):
+            forward()
+    host_ms = (time.perf_counter() - t0) / 10 * 1e3
+    torch.cuda.synchronize()
+    print(f"raft host: {host_ms:.3f} ms to enqueue a forward, {n_act:.0f} "
+          f"device activities, {host_ms * 1e3 / n_act:.2f} us of host per "
+          f"device activity ({fwd_ms * 1e3 / n_act:.2f} us of forward)")
     # the regions' labels cost host time: a trace of their own
     from torch.profiler import ProfilerActivity
     with raft_regions(model), torch.inference_mode():
         prof = _trace(forward, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
                       3)
-    regions = raft_breakdown(prof, busy_us)
+    regions = region_breakdown(prof, busy_us, RAFT_REGIONS, "raft")
     return model, dict(forward_ms=fwd_ms, pairs_per_s=RAFT_BATCH / fwd_ms * 1e3,
                        busy_ms=busy_us / 1e3, idle=idle, peak_gib=peak_gib,
-                       syncs=syncs, regions=regions)
+                       syncs=syncs, host_ms=host_ms, activities=n_act,
+                       regions=regions)
 
 
 def raft_frame_request(model, images):
@@ -1494,6 +1556,310 @@ def raft_eval_phase():
     return epe
 
 
+def panoptic_model(name, dtype, device=None, seed=0):
+    """``name``'s model with random weights from a seeded generator, built
+    as a user builds it: ``DetrPanoptic()`` for DETR-R50, and
+    ``DetrPanoptic(deformable_detr_r50(return_intermediate=True))``; on the
+    card when ``device`` is None."""
+    from aloception_tpu_torch.models.deformable_detr import deformable_detr_r50
+    from aloception_tpu_torch.models.panoptic import DetrPanoptic
+    g = torch.Generator(device=device or "cuda").manual_seed(seed)
+    if name == "detr_r50_panoptic":
+        return DetrPanoptic(num_classes=PANOPTIC_CLASSES, dtype=dtype,
+                            device=device, generator=g)
+    return DetrPanoptic(deformable_detr_r50(
+        num_classes=PANOPTIC_CLASSES, return_intermediate=True, dtype=dtype,
+        device=device, generator=g), generator=g)
+
+
+def _cast(tree, dtype):
+    """``tree`` (tensors in dicts and lists) with its floating tensors in
+    ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype) for v in tree]
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
+def _rel_err(got, want, keys):
+    """max over ``keys`` of max|got - want| / max(1, max|want|)."""
+    return max((got[k].float().cpu() - want[k].float().cpu()).abs().max()
+               .item() / max(1.0, want[k].float().abs().max().item())
+               for k in keys)
+
+
+def panoptic_parity_phase(device):
+    """detr_r50_panoptic in float32 at bs1 on a padded 384x512 batch: the
+    card against the same model on the CPU; pred_masks, logits and boxes
+    within 1e-3 * max(1, max|ref|)."""
+    cpu_model = panoptic_model("detr_r50_panoptic", torch.float32, "cpu",
+                               seed=70)
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    from aloception_tpu_torch.aloscene import Frame, batch_list
+    image = torch.randint(0, 256, (3,) + PANOPTIC_GATE_FRAME,
+                          dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(71))
+    batch = batch_list([Frame(image).norm_resnet()], size=PANOPTIC_GATE_HW)
+    layout = ("B", "H", "W", "C")
+    with torch.inference_mode():
+        want = cpu_model(batch.as_layout(layout), batch.mask.array[:, 0])
+        gb = batch.to(device)
+        got = gpu_model(gb.as_layout(layout), gb.mask.array[:, 0])
+    err = _rel_err(got, want, ("pred_masks", "pred_logits", "pred_boxes"))
+    masks = want["pred_masks"]
+    print(f"detr_r50_panoptic fp32 bs1 {PANOPTIC_GATE_HW} card vs cpu on a "
+          f"padded batch (padded share {batch.mask.array.mean().item():.4f}"
+          f"): pred_masks {tuple(masks.shape)}, max|diff| / max(1, max|ref|) "
+          f"over masks, logits and boxes {err:.3e} (tol 1e-3; max|masks| "
+          f"{masks.abs().max().item():.3f})")
+    if not (err <= 1e-3 and masks.isfinite().all()):
+        raise AssertionError(f"detr_r50_panoptic on the card disagrees with "
+                             f"the cpu: {err}")
+    return err
+
+
+def panoptic_gate_phase(device):
+    """deformable_detr_r50_panoptic in float32 at bs2 640x640 on the card:
+    the MSDA kernel path against the plain path, one model, with the offset
+    and weight kernels of every MSDeformAttn drawn at random; pred_masks,
+    logits and boxes within 1e-3 * max(1, max|ref|)."""
+    from aloception_tpu_torch.models.deformable_detr import ms_deform_attn \
+        as msda_module
+    from aloception_tpu_torch.ops.ms_deform_attn import ms_deform_attn_torch
+    model = panoptic_model("deformable_detr_r50_panoptic", torch.float32,
+                           device, seed=72)
+    g = torch.Generator(device=device).manual_seed(73)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, msda_module.MSDeformAttn):
+                mod.sampling_offsets.weight.normal_(0.0, 0.1, generator=g)
+                mod.attention_weights.weight.normal_(0.0, 0.1, generator=g)
+    x = torch.randn(2, *SIZE, 3, device=device, generator=g)
+    mask = torch.zeros(2, *SIZE, device=device)
+    mask[1, :, 3 * SIZE[1] // 4:] = 1.0
+    with torch.inference_mode():
+        out_k = model(x, mask)
+        with mock.patch.object(msda_module, "ms_deform_attn",
+                               ms_deform_attn_torch):
+            out_p = model(x, mask)
+    err = _rel_err(out_k, out_p, ("pred_masks", "pred_logits", "pred_boxes"))
+    print(f"deformable_detr_r50_panoptic fp32 bs2 {SIZE}: kernel path vs "
+          f"plain path, max|diff| / max(1, max|ref|) over masks, logits and "
+          f"boxes {err:.3e} (tol 1e-3)")
+    if not err <= 1e-3:
+        raise AssertionError(f"panoptic kernel path and plain path disagree: "
+                             f"{err}")
+    return err
+
+
+def check_panoptic(results, n, hw, background=None):
+    """``n`` (BoundingBoxes2D, Mask) pairs: detections as
+    ``check_detections``, binary (N, H, W) masks at ``hw`` with the boxes'
+    labels and scores. Returns the kept queries."""
+    from aloception_tpu_torch.aloscene import Mask
+    kept = check_detections([b for b, _ in results], n, background)
+    for b, m in results:
+        if not (isinstance(m, Mask) and m.names == ("N", "H", "W")
+                and m.shape == (len(b),) + tuple(hw)):
+            raise AssertionError(f"malformed masks {m!r} for {len(b)} boxes")
+        if not ((m.array == 0) | (m.array == 1)).all():
+            raise AssertionError("masks not binary")
+        if not (torch.equal(m.labels.array, b.labels.array)
+                and torch.equal(m.labels.scores, b.labels.scores)):
+            raise AssertionError("masks and boxes carry different labels")
+    return kept
+
+
+def panoptic_bf16_check(name, model, x, mask, out):
+    """The served bf16 ``out`` of ``model(x, mask)`` against a float32 copy
+    of the model on the same inputs, and the bf16 head alone against the
+    float32 head on the float32 detector's outputs (rounded to bf16 for the
+    bf16 head), each within PANOPTIC_BF16_TOL. Returns both errors."""
+    from aloception_tpu_torch.models.panoptic import PanopticHead
+    ref = copy.deepcopy(model).float()
+    keys = ("pred_masks", "pred_logits", "pred_boxes")
+    with torch.inference_mode():
+        err = _rel_err(out, ref(x.float(), mask), keys)
+        det = ref.detr(x.float(), mask)
+        head_err = _rel_err(
+            PanopticHead.forward(model, _cast(
+                det, model.detr.query_embed.weight.dtype)),
+            PanopticHead.forward(ref, det), ("pred_masks",))
+    del ref, det
+    torch.cuda.empty_cache()
+    print(f"{name} bf16 vs the same weights in fp32 on the card, max|diff| "
+          f"/ max(1, max|ref|): forward (masks, logits, boxes) {err:.3e} "
+          f"(tol {PANOPTIC_BF16_TOL['forward']:.0e}), head alone (masks) "
+          f"{head_err:.3e} (tol {PANOPTIC_BF16_TOL['head']:.0e})")
+    if not (err <= PANOPTIC_BF16_TOL["forward"]
+            and head_err <= PANOPTIC_BF16_TOL["head"]):
+        raise AssertionError(f"{name} in bf16 disagrees with fp32: {err}, "
+                             f"head {head_err}")
+    return err, head_err
+
+
+def panoptic_serving_phase(name, device):
+    """``name`` in bfloat16 at its batch, 640x640 (built with no device
+    named, so on the card): the outputs against float32
+    (``panoptic_bf16_check``), images/s from CUDA events (mean of 10
+    forwards after 2 warm-ups), peak memory, the detector and the head
+    timed alone alike, the profile and syncs of one forward
+    (``profile_phase``), device ms of the detector, the attention maps and
+    the mask head from a trace with the regions labelled, and the MSDA
+    launches of one forward. Returns (model, measurements)."""
+    from aloception_tpu_torch.models.panoptic import PanopticHead
+    from aloception_tpu_torch.ops.cuda import ms_deform_attn_cuda
+    from torch.profiler import ProfilerActivity
+    model = panoptic_model(name, torch.bfloat16)
+    if any(p.device != device for p in model.parameters()):
+        raise AssertionError(f"{name} with no device did not build on the "
+                             "card")
+    batch = PANOPTIC_BATCH[name]
+    g = torch.Generator(device=device).manual_seed(74)
+    x = torch.randn(batch, *SIZE, 3, device=device,
+                    generator=g).to(torch.bfloat16)
+    mask = torch.zeros(batch, *SIZE, device=device)
+    with torch.inference_mode():
+        out = model(x, mask)
+    nq = model.detr.num_queries
+    masks = out["pred_masks"]
+    if not (masks.shape == (batch, nq, SIZE[0] // 4, SIZE[1] // 4)
+            and masks.isfinite().all()):
+        raise AssertionError(f"bad {name} masks {tuple(masks.shape)}")
+    bf16_err, head_bf16_err = panoptic_bf16_check(name, model, x, mask, out)
+    del out, masks
+    torch.cuda.synchronize()
+    ms_deform_attn_cuda.launches = 0
+    with torch.inference_mode():
+        model(x, mask)
+    torch.cuda.synchronize()
+    launches = ms_deform_attn_cuda.launches
+    want = MSDA_CALLS_PER_FORWARD if "deformable" in name else 0
+    if launches != want:
+        raise AssertionError(f"{name}: msda kernel launched {launches} times "
+                             f"in one forward, not {want}")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model(x, mask), iters=10, warmup=2)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    with torch.inference_mode():
+        det_ms = cuda_ms(lambda: model.detr(x, mask), iters=10, warmup=2)
+        det_out = model.detr(x, mask)
+        head_ms = cuda_ms(lambda: PanopticHead.forward(model, det_out),
+                          iters=10, warmup=2)
+    del det_out
+    print(f"{name} bs{batch} {SIZE[0]}px bf16 ({batch * nq} query maps): "
+          f"forward {fwd_ms:.3f} ms, {batch / fwd_ms * 1e3:.2f} images/s, "
+          f"peak memory {peak_gib:.3f} GiB, msda launches a forward "
+          f"{launches}; alone: detector {det_ms:.3f} ms, head {head_ms:.3f} "
+          f"ms")
+    _, busy_us, idle, syncs, _ = profile_phase(lambda: model(x, mask))
+    if syncs:
+        raise AssertionError(f"{name}: {syncs} synchronising operations in "
+                             "one forward")
+    with contextlib.ExitStack() as stack, torch.inference_mode():
+        for mod, label in ((model.detr, "detector"),
+                           (model.bbox_attention, "bbox_attention"),
+                           (model.mask_head, "mask_head")):
+            stack.enter_context(mock.patch.object(
+                mod, "forward", _labelled(mod.forward, label)))
+        prof = _trace(lambda: model(x, mask),
+                      [ProfilerActivity.CPU, ProfilerActivity.CUDA], 3)
+    regions = region_breakdown(prof, busy_us, PANOPTIC_REGIONS, name)
+    return model, dict(batch=batch, forward_ms=fwd_ms,
+                       images_per_s=batch / fwd_ms * 1e3,
+                       detector_alone_ms=det_ms, head_alone_ms=head_ms,
+                       bf16_vs_fp32=bf16_err, head_bf16_vs_fp32=head_bf16_err,
+                       busy_ms=busy_us / 1e3, idle=idle, peak_gib=peak_gib,
+                       syncs=syncs, msda_launches=launches,
+                       region_ms={r: sum(k.values())
+                                  for r, k in regions.items()},
+                       regions=regions)
+
+
+def panoptic_frame_phase(name, model, device):
+    """3 requests of 4 uint8 frames of mixed sizes (PANOPTIC_FRAMES), made on
+    the card: Frame -> norm_resnet -> batch_list -> model ->
+    inference_with_masks (masks at the batch's padded size); latency, the
+    synchronising operations of one request (1: the copy of the keep mask)
+    and the MSDA launches of the requests."""
+    from aloception_tpu_torch.aloscene import Frame, batch_list
+    from aloception_tpu_torch.models.panoptic import inference_with_masks
+    from aloception_tpu_torch.ops.cuda import ms_deform_attn_cuda
+
+    g = torch.Generator(device=device).manual_seed(75)
+    requests = [[torch.randint(0, 256, (3,) + hw, dtype=torch.uint8,
+                               device=device, generator=g)
+                 for hw in PANOPTIC_FRAMES] for _ in range(N_REQUESTS)]
+
+    def request(images):
+        b = batch_list([Frame(x).norm_resnet() for x in images])
+        out = model(b.as_layout(("B", "H", "W", "C")), b.mask.array[:, 0])
+        return b, inference_with_masks(out, frame_size=b.HW,
+                                       **PANOPTIC_INFERENCE[name])
+
+    torch.cuda.synchronize()
+    ms_deform_attn_cuda.launches = 0
+    latencies, results = [], []
+    for images in requests:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            results.append(request(images))
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t0)
+    launches = ms_deform_attn_cuda.launches
+    want = MSDA_CALLS_PER_FORWARD * N_REQUESTS if "deformable" in name else 0
+    if launches != want:
+        raise AssertionError(f"{name} Frame path: {launches} msda launches in "
+                             f"{N_REQUESTS} requests, not {want}")
+    kept = [check_panoptic(res, len(PANOPTIC_FRAMES), b.HW,
+                           PANOPTIC_INFERENCE[name].get("background_class"))
+            for b, res in results]
+    with torch.inference_mode():
+        syncs = len(syncs_of(lambda: request(requests[0])))
+    if syncs != 1:
+        raise AssertionError(f"{name} Frame path: {syncs} synchronising "
+                             "operations in one request, not 1")
+    print(f"{name} Frame path: {N_REQUESTS} requests of "
+          f"{len(PANOPTIC_FRAMES)} uint8 frames {sorted(set(PANOPTIC_FRAMES))}"
+          f" -> {results[0][0].HW} bf16 -> masks at that size, latency s "
+          f"{[round(t, 4) for t in latencies]}, kept queries {kept}, msda "
+          f"launches {launches}; synchronising operations in one request: "
+          f"{syncs}")
+    return dict(latency_s=latencies, syncs=syncs, kept=kept,
+                msda_launches=launches)
+
+
+def panoptic_eval_phase():
+    """``eval_on_coco --sample --limit_batches 2`` on the card for
+    ``--model panoptic_deformable`` and ``--model panoptic`` (random
+    weights: AP and PQ prove that the entry point runs, nothing more), with
+    the MSDA launches of the Deformable run."""
+    import math
+    from aloception_tpu_torch.commands import eval_on_coco
+    from aloception_tpu_torch.ops.cuda import ms_deform_attn_cuda
+    results = {}
+    for model in ("panoptic_deformable", "panoptic"):
+        ms_deform_attn_cuda.launches = 0
+        maps = eval_on_coco.main(["--sample", "--model", model,
+                                  "--limit_batches", "2"])
+        torch.cuda.synchronize()
+        ap = maps["all"]["all"]
+        if not math.isfinite(ap):
+            raise AssertionError(f"eval_on_coco --model {model}: AP {ap}")
+        results[model] = dict(ap=ap,
+                              msda_launches=ms_deform_attn_cuda.launches)
+    if results["panoptic_deformable"]["msda_launches"] != \
+            2 * MSDA_CALLS_PER_FORWARD:
+        raise AssertionError(f"eval_on_coco panoptic_deformable: "
+                             f"{results['panoptic_deformable']} msda launches")
+    print(f"eval_on_coco on the card: {results}")
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: "
@@ -1544,6 +1910,24 @@ def main():
     raft_frame = raft_frame_phase(raft_model, device)
     del raft_model
     raft_epe = raft_eval_phase()
+    torch.cuda.empty_cache()
+    panoptic = dict(parity=panoptic_parity_phase(device),
+                    gate=panoptic_gate_phase(device))
+    torch.cuda.empty_cache()
+    for name in PANOPTIC_BATCH:
+        model, serve = panoptic_serving_phase(name, device)
+        serve["frame"] = panoptic_frame_phase(name, model, device)
+        panoptic[name] = serve
+        del model
+        torch.cuda.empty_cache()
+    panoptic["eval"] = panoptic_eval_phase()
+    pan_msda = {
+        "panoptic_forward":
+            panoptic["deformable_detr_r50_panoptic"]["msda_launches"],
+        "panoptic_frame": panoptic["deformable_detr_r50_panoptic"]["frame"][
+            "msda_launches"],
+        "panoptic_eval": panoptic["eval"]["panoptic_deformable"][
+            "msda_launches"]}
 
     enc, dec = sites["encoder"], sites["decoder"]
     msda_train, msda_backward, hung_train = train["launches"]
@@ -1553,10 +1937,11 @@ def main():
         "route": "cuda",
         "source": "aloception_tpu_torch/csrc/ms_deform_attn.cu",
         "replaces": "aloception_tpu/ops/pallas/ms_deform_attn_kernel.py:245",
-        "launches": launches + frame_launches + msda_train,
+        "launches": launches + frame_launches + msda_train
+        + sum(pan_msda.values()),
         "launches_by_path": {"fused_preprocess": launches,
                              "frame": frame_launches,
-                             "train": msda_train},
+                             "train": msda_train, **pan_msda},
         # the training path's backward: the gradient of the plain version,
         # recomputed through the autograd Function
         "backward_passes": msda_backward,
@@ -1608,7 +1993,10 @@ def main():
                  "regions": raft_serve.pop("regions"), **raft_serve,
                  "frame_latency_s": raft_frame["latency_s"],
                  "frame_syncs": raft_frame["syncs"],
-                 "eval_sintel_sample_epe": raft_epe}}))
+                 "eval_sintel_sample_epe": raft_epe},
+        # the panoptic head runs no kernel of the port; its Deformable
+        # detector runs the MSDA kernel (launches above)
+        "panoptic": panoptic}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -40,6 +40,16 @@ def test_raft_modules_are_checked(module):
     assert PKG / module in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "models/panoptic/__init__.py", "models/panoptic/panoptic_head.py",
+    "metrics/__init__.py", "metrics/ap_metrics.py", "metrics/pq_metrics.py",
+    "alodataset/coco_panoptic.py", "commands/eval_on_coco.py"])
+def test_panoptic_modules_are_checked(module):
+    """The panoptic slice's modules, the port's own copy of the metrics
+    among them, are among the sources checked below."""
+    assert PKG / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PKG)))
 def test_no_jax_import(path):
     roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))

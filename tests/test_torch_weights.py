@@ -1,10 +1,13 @@
-"""``deformable_state_dict_from_jax`` and ``detr_state_dict_from_jax`` are
-the exact inverses of the JAX package's torch -> flax converters: JAX params
--> port state_dict -> ``convert_deformable_checkpoint`` /
-``convert_detr_checkpoint`` gives back the same params, bit for bit, and the
-state_dict loads strictly into the port's model. Full ResNet-50 stages (the
+"""``deformable_state_dict_from_jax``, ``detr_state_dict_from_jax`` and
+``panoptic_state_dict_from_jax`` are the exact inverses of the JAX package's
+torch -> flax converters: JAX params -> port state_dict ->
+``convert_deformable_checkpoint`` / ``convert_detr_checkpoint`` /
+``convert_panoptic_checkpoint`` gives back the same params, bit for bit, and
+the state_dict loads strictly into the port's model. Full ResNet-50 stages (the
 converters'), a narrow transformer; params drawn with numpy over the JAX
 model's shapes."""
+
+from functools import partial
 
 import numpy as np
 import pytest
@@ -15,27 +18,33 @@ import jax.numpy as jnp
 from aloception_tpu.models.backbone.resnet import conv1_to_s2d_kernel
 from aloception_tpu.models.deformable_detr import DeformableDETR as JaxDETR
 from aloception_tpu.models.detr import Detr as JaxDetr
+from aloception_tpu.models.panoptic import DetrPanoptic as JaxPanoptic
+from aloception_tpu.utils import weights as jax_weights
 from aloception_tpu.utils.weights import (convert_deformable_checkpoint,
                                           convert_detr_checkpoint)
 from aloception_tpu_torch.models.deformable_detr import DeformableDETR
 from aloception_tpu_torch.models.detr import Detr
+from aloception_tpu_torch.models.panoptic import DetrPanoptic
 from aloception_tpu_torch.utils.weights import (deformable_state_dict_from_jax,
                                                 detr_state_dict_from_jax,
+                                                panoptic_state_dict_from_jax,
                                                 s2d_stem_to_7x7)
 
 SMALL = dict(num_classes=10, hidden_dim=64, num_queries=20, nheads=4,
              num_encoder_layers=2, num_decoder_layers=3, dim_feedforward=128)
 
 
-def _random_params(model, space_to_depth, rng):
+def _random_params(model, space_to_depth, rng, backbone=("backbone",)):
     shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
                             jnp.zeros((1, 64, 64, 3)))["params"]
     params = jax.tree_util.tree_map(
         lambda s: rng.randn(*s.shape).astype(np.float32), shapes)
     if space_to_depth:   # only kernels that came from a 7x7 have a 7x7 form
         w7 = rng.randn(7, 7, 3, 64).astype(np.float32)
-        params["backbone"]["trunk"]["conv1"]["kernel"] = np.asarray(
-            conv1_to_s2d_kernel(w7))
+        tree = params
+        for key in backbone:
+            tree = tree[key]
+        tree["trunk"]["conv1"]["kernel"] = np.asarray(conv1_to_s2d_kernel(w7))
     return params
 
 
@@ -85,6 +94,49 @@ def test_detr_round_trip_through_jax_converter_is_exact(space_to_depth):
     port = Detr(**SMALL)
     port.load_state_dict(sd, strict=True)
     assert set(port.state_dict()) == set(sd)
+
+
+@pytest.mark.parametrize("space_to_depth", [True, False])
+@pytest.mark.parametrize("detector", ["detr", "deformable"])
+def test_panoptic_round_trip_through_jax_converter_is_exact(
+        detector, space_to_depth, monkeypatch):
+    """The panoptic head's reference names and the wrapped detector's under
+    ``detr.``. ``convert_panoptic_checkpoint`` converts its detector with
+    ``convert_detr_checkpoint`` at full width; here it is given the narrow
+    transformer's widths, and for Deformable-DETR, which the reference
+    publishes no panoptic checkpoint of, the Deformable converter."""
+    rng = np.random.RandomState(3)
+    dims = dict(d_model=64, nheads=4, num_enc=2, num_dec=3)
+    kw = dict(return_intermediate=True, **SMALL)
+    if detector == "detr":
+        jax_det, port_det = JaxDetr(space_to_depth=space_to_depth, **kw), \
+            Detr(**kw)
+        convert = partial(convert_detr_checkpoint, **dims)
+    else:
+        jax_det = JaxDETR(space_to_depth=space_to_depth, **kw)
+        port_det = DeformableDETR(**kw)
+        convert = partial(convert_deformable_checkpoint, **dims)
+    monkeypatch.setattr(jax_weights, "convert_detr_checkpoint", convert)
+    params = _random_params(JaxPanoptic(detector=jax_det, num_classes=10),
+                            space_to_depth, rng, ("detector", "backbone"))
+    sd = panoptic_state_dict_from_jax({"params": params})
+
+    back = jax_weights.convert_panoptic_checkpoint(
+        {k: v.numpy() for k, v in sd.items()}, space_to_depth=space_to_depth)
+    back = {"detector": back["detr"]["params"],
+            "panoptic_head": back["head"]["params"]}
+    want = dict(jax.tree_util.tree_leaves_with_path(params))
+    got = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert got.keys() == want.keys()
+    for k in want:
+        assert np.array_equal(np.asarray(got[k]), want[k]), \
+            jax.tree_util.keystr(k)
+
+    port = DetrPanoptic(port_det, num_classes=10)
+    port.load_state_dict(sd, strict=True)
+    assert set(port.state_dict()) == set(sd)
+    assert {k.split(".")[0] for k in sd} == {"detr", "bbox_attention",
+                                             "mask_head"}
 
 
 def test_s2d_stem_outside_7x7_window_is_refused():
