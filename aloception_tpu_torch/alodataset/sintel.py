@@ -11,11 +11,14 @@ A9/A10.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from ..aloscene import Flow, Frame, Mask
 from ..aloscene.spatial import _cat_batched
+from .coco_detection import Loader
 
 
 class SintelFlowDataset:
@@ -46,3 +49,9 @@ class SintelFlowDataset:
                     torch.zeros(1, H, W))), "flow_forward")
             frames.append(f.temporal())
         return _cat_batched(frames, axis_name="T")
+
+    def train_loader(self, batch_size: int = 1, shuffle: bool = True,
+                     seed: Optional[int] = None, drop_last: bool = True
+                     ) -> Loader:
+        """Re-iterable loader of lists of pairs, reshuffled each epoch."""
+        return Loader(self, batch_size, shuffle, seed, drop_last)

@@ -1,4 +1,4 @@
-"""Train DETR or Deformable-DETR on COCO (counterpart of
+"""Train DETR, Deformable-DETR or the panoptic head on COCO (counterpart of
 ``aloception_tpu/commands/train_on_coco.py``).
 
 Examples
@@ -6,7 +6,13 @@ Examples
 python -m aloception_tpu_torch.commands.train_on_coco --cpu --sample --tiny --fast_dev_run
 python -m aloception_tpu_torch.commands.train_on_coco --model deformable --sample \
     --batch_size 8 --size 640 640 --max_steps 100
+python -m aloception_tpu_torch.commands.train_on_coco --model panoptic_deformable --sample \
+    --batch_size 4 --size 640 640 --max_steps 100
 
+``--model panoptic`` and ``--model panoptic_deformable`` train the panoptic
+head on a frozen DETR-R50 or Deformable-DETR-R50 (without refinement), the
+latter with the focal criterion and matcher as its base; validation reports
+PQ for them and AP for the detectors.
 Runs on the CUDA card, or on the CPU with ``--cpu``; without a card and
 without ``--cpu`` it raises. Only the offline synthetic sample (``--sample``)
 is ported; COCO on disk and ``--multiscale`` wait in ROADMAP A10.
@@ -60,21 +66,21 @@ def main(argv=None):
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag} is not ported yet (ROADMAP {item})")
-    if args.model.startswith("panoptic"):
-        raise NotImplementedError(
-            f"--model {args.model}: panoptic training is not ported yet "
-            "(ROADMAP A8)")
     from aloception_tpu_torch.models.transformers import entry_device
     from aloception_tpu_torch.train import (
-        CocoDetection2Detr, MetricsCallback, make_deformable_detr_trainer,
-        make_detr_trainer)
+        ApMetricsCallback, CocoDetection2Detr, MetricsCallback,
+        PQMetricsCallback, make_deformable_detr_trainer, make_detr_trainer,
+        make_panoptic_trainer)
 
     device = entry_device("cpu" if args.cpu else None)
+    panoptic = args.model.startswith("panoptic")
     dm = CocoDetection2Detr(batch_size=args.batch_size, sample=args.sample,
-                            size=tuple(args.size), seed=args.seed)
+                            size=tuple(args.size), seed=args.seed,
+                            return_masks=panoptic)
     kwargs = dict(data_module=dm, run_id=args.run_id,
                   expe_name=args.expe_name, device=device, seed=args.seed,
-                  callbacks=[MetricsCallback()])
+                  callbacks=[MetricsCallback(), PQMetricsCallback()
+                             if panoptic else ApMetricsCallback()])
     if args.project:
         kwargs["project"] = args.project
     if args.log_dir:
@@ -88,19 +94,41 @@ def main(argv=None):
 
     n_cls = len(dm.label_names)
     if args.tiny:
+        from aloception_tpu_torch.models.deformable_detr import DeformableDETR
+        from aloception_tpu_torch.models.detr import Detr
         tiny = dict(num_classes=n_cls, hidden_dim=64, num_queries=20,
                     nheads=4, num_encoder_layers=2, num_decoder_layers=2,
                     dim_feedforward=128, stage_sizes=(1, 1, 1, 1),
                     device=device)
-        if args.model == "detr":
-            from aloception_tpu_torch.models.detr import Detr
-            kwargs["model"] = Detr(**tiny)
-        else:
+        models = {
+            "detr": lambda: Detr(**tiny),
+            "deformable": lambda: DeformableDETR(with_box_refine=True,
+                                                 **tiny),
+            "panoptic": lambda: Detr(return_intermediate=True, **tiny),
+            "panoptic_deformable": lambda: DeformableDETR(
+                with_box_refine=False, return_intermediate=True, **tiny)}
+        kwargs["detector" if panoptic else "model"] = models[args.model]()
+    if panoptic:
+        # the head trains on a frozen detector; the Deformable one has the
+        # focal criterion and matcher as its base
+        if args.model == "panoptic_deformable":
+            from functools import partial
             from aloception_tpu_torch.models.deformable_detr import (
-                DeformableDETR)
-            kwargs["model"] = DeformableDETR(with_box_refine=True, **tiny)
-    make = make_detr_trainer if args.model == "detr" \
-        else make_deformable_detr_trainer
+                deformable_criterion, deformable_detr_r50,
+                focal_hungarian_match)
+            from aloception_tpu_torch.models.panoptic import (
+                panoptic_criterion)
+            kwargs["criterion"] = partial(
+                panoptic_criterion, base_criterion=deformable_criterion,
+                matcher=focal_hungarian_match)
+            if "detector" not in kwargs:
+                kwargs["detector"] = deformable_detr_r50(
+                    num_classes=n_cls, return_intermediate=True,
+                    device=device)
+        make = make_panoptic_trainer
+    else:
+        make = make_detr_trainer if args.model == "detr" \
+            else make_deformable_detr_trainer
     trainer = make(**kwargs)
     trainer.fit(dm.train_dataloader(), dm.val_dataloader(),
                 max_epochs=args.max_epochs, max_steps=args.max_steps,

@@ -156,16 +156,6 @@ class PanopticHead(nn.Module):
         return out
 
 
-def _detached(tree):
-    if isinstance(tree, torch.Tensor):
-        return tree.detach()
-    if isinstance(tree, dict):
-        return {k: _detached(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_detached(v) for v in tree]
-    return tree
-
-
 class DetrPanoptic(PanopticHead):
     """A DETR-family detector built with ``return_intermediate`` (held as
     ``detr``) and the panoptic head, which takes the detector's width,
@@ -175,8 +165,11 @@ class DetrPanoptic(PanopticHead):
     ``dtype``: on the CUDA card unless ``device`` names another, raising
     with no card, as ``detr_r50`` does. The head's parameters are drawn from
     ``generator`` (after the detector's, when it builds one; a fresh one
-    seeded with 0 when None). ``freeze_detector`` detaches the detector's
-    outputs, so that only the head trains."""
+    seeded with 0 when None). ``freeze_detector`` runs the detector without
+    gradients, so that only the head trains: no autograd graph is kept for
+    the detector, and its MSDA calls take no backward pass. The detector
+    keeps its module's mode (its dropout acts in train mode), as the JAX
+    package's frozen detector does."""
 
     def __init__(self, detector: Optional[nn.Module] = None,
                  num_classes: int = 250, freeze_detector: bool = True,
@@ -209,9 +202,9 @@ class DetrPanoptic(PanopticHead):
     def forward(self, images: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> Dict:
         """images (B, H, W, 3) normalised; mask (B, H, W), 1 = padded."""
-        out = self.detr(images, mask)
-        if self.freeze_detector:
-            out = _detached(out)
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not self.freeze_detector):
+            out = self.detr(images, mask)
         return super().forward(out)
 
 

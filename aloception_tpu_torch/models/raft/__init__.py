@@ -1,5 +1,5 @@
-"""RAFT optical flow, inference (counterpart of
-``aloception_tpu/models/raft``; the criterion waits in ROADMAP A7)."""
+"""RAFT optical flow (counterpart of ``aloception_tpu/models/raft``)."""
+from .criterion import raft_sequence_loss  # noqa: F401
 from .raft import (RAFT, RAFTBase, built, convex_upsample,  # noqa: F401
                    inference, raft, raft_small, upflow8)
 from .utils import Padder  # noqa: F401

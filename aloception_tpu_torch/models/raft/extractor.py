@@ -12,8 +12,11 @@ Norms, each computed in at least float32 and cast back to its input's dtype
 (as flax normalises):
 
 - ``instance``: per sample and channel over H, W, no affine, eps 1e-5;
-- ``batch``: BatchNorm2d, eps 1e-5 (flax momentum 0.9 is torch's 0.1), its
-  running statistics in eval mode;
+- ``batch``: BatchNorm2d, eps 1e-5, its running statistics in eval mode;
+  in train mode it normalises with the batch's statistics and moves the
+  running ones toward them by 0.1 (flax's momentum 0.9) as flax does: the
+  variance it keeps is the biased batch variance, where
+  ``nn.BatchNorm2d`` keeps the unbiased one;
 - ``group``: GroupNorm, eps 1e-5: 8 groups in the stem, planes // 8 in the
   blocks, planes // 8 even on the bottleneck's planes // 4 norms;
 - ``none``: identity.
@@ -40,7 +43,16 @@ class InstanceNorm(nn.InstanceNorm2d):
 
 class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(_wide(x)).to(x.dtype)
+        y = _wide(x)
+        if not self.training:
+            return super().forward(y).to(x.dtype)
+        with torch.no_grad():
+            var, mean = torch.var_mean(y, (0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        return F.batch_norm(y, None, None, self.weight, self.bias,
+                            training=True, eps=self.eps).to(x.dtype)
 
 
 class GroupNorm(nn.GroupNorm):

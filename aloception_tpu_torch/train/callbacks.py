@@ -1,8 +1,7 @@
-"""Training callbacks (counterpart of the ``Callback`` and
-``MetricsCallback`` of ``aloception_tpu/train/callbacks.py``).
-
-The AP and PQ callbacks, which need a copy of the metrics package, wait in
-ROADMAP A6.
+"""Training callbacks (counterpart of ``aloception_tpu/train/callbacks.py``):
+``MetricsCallback``, and the AP, PQ and EPE callbacks over the port's own
+``metrics``. ``ObjectDetectorCallback``, which needs the renderer, waits in
+ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -52,3 +51,90 @@ class MetricsCallback(Callback):
         trainer.logger.log_scalars(means, step, prefix="val/")
         trainer.last_val_metrics = {f"val_{k}": v for k, v in means.items()}
         self._val.clear()
+
+
+class ApMetricsCallback(Callback):
+    """COCO AP over a validation pass: ``trainer.inference_fn(outputs)``
+    gives each image's predicted boxes, the batch's ``frames`` their ground
+    truth; printed and logged at the end of the pass."""
+
+    def __init__(self):
+        from ..metrics import ApMetrics
+        self._make = ApMetrics
+        self.ap = ApMetrics()
+
+    def on_val_batch_end(self, trainer, outputs, batch, metrics):
+        frames = batch.get("frames")
+        if frames is None or trainer.inference_fn is None:
+            return
+        gt = frames.boxes2d if isinstance(frames.boxes2d, list) \
+            else [frames.boxes2d]
+        for p, t in zip(trainer.inference_fn(outputs), gt):
+            if t is not None:
+                self.ap.add_sample(p, t)
+
+    def on_val_epoch_end(self, trainer, step):
+        if self.ap.ap_data is None:
+            return
+        all_maps, _ = self.ap.calc_map(print_result=True)
+        trainer.logger.log_scalars(
+            {f"AP{k}": v for k, v in all_maps["all"].items()}, step,
+            prefix="val/")
+        self.ap = self._make()
+
+
+class PQMetricsCallback(Callback):
+    """Panoptic quality over a validation pass: ``trainer.inference_fn``
+    gives (boxes, masks) pairs, its masks upsampled to the ground-truth
+    segmentation's size (``frame_size``); printed and logged for all,
+    things and stuff at the end of the pass."""
+
+    def __init__(self, isthing=None):
+        from ..metrics import PQMetrics
+        self._make = PQMetrics
+        self.pq = PQMetrics()
+        self.isthing = isthing
+
+    def on_val_batch_end(self, trainer, outputs, batch, metrics):
+        frames = batch.get("frames")
+        if frames is None or trainer.inference_fn is None:
+            return
+        seg = frames.get_child("segmentation")
+        segs = seg if isinstance(seg, list) else [seg]
+        segs = [g if g is not None and not isinstance(g, dict) else None
+                for g in segs]
+        size = next((tuple(g.shape[-2:]) for g in segs if g is not None),
+                    None)
+        for (_, masks), gt in zip(trainer.inference_fn(outputs,
+                                                       frame_size=size),
+                                  segs):
+            if gt is not None:
+                self.pq.add_sample(masks, gt, isthing=self.isthing)
+
+    def on_val_epoch_end(self, trainer, step):
+        for isthing, tag in ((None, "all"), (True, "things"),
+                             (False, "stuff")):
+            out = self.pq.pq_average(isthing=isthing, print_result=True)
+            trainer.logger.log_scalars(
+                {f"PQ_{tag}_{k}": v for k, v in out.items()}, step,
+                prefix="val/")
+        self.pq = self._make()
+
+
+class EPECallback(Callback):
+    """End-point error of a flow model over a validation pass: the mean of
+    the criterion's per-batch ``epe``, printed and logged."""
+
+    def __init__(self):
+        self._epes: List[float] = []
+
+    def on_val_batch_end(self, trainer, outputs, batch, metrics):
+        if "epe" in metrics:
+            self._epes.append(float(metrics["epe"]))
+
+    def on_val_epoch_end(self, trainer, step):
+        if self._epes:
+            epe = float(np.mean(self._epes))
+            trainer.logger.log_scalar("val/EPE", epe, step)
+            print(f"[EPE] {epe:.4f} over {len(self._epes)} val batches")
+            self._epes = []

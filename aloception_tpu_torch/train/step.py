@@ -8,7 +8,7 @@ single host transfer, the step's only synchronisation.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -38,15 +38,19 @@ def pack_metrics(metrics: Dict[str, torch.Tensor]
                               for k in keys])
 
 
-def make_detr_train_step(model: nn.Module, optimizer: TrainOptimizer,
-                         criterion: Callable = detr_criterion) -> Callable:
-    """``step(images, mask, targets)`` -> (sorted metric keys, packed
-    metrics), including ``grad_norm``."""
+def make_train_step(model: nn.Module, optimizer: TrainOptimizer,
+                    criterion: Callable,
+                    forward_kwargs: Optional[Dict] = None) -> Callable:
+    """``step(inputs, targets)`` -> (sorted metric keys, packed metrics),
+    including ``grad_norm``: the forward is ``model(*inputs,
+    **forward_kwargs)``, whatever the model's inputs are (images and mask
+    for the detectors, two frames for RAFT)."""
+    kwargs = dict(forward_kwargs or {})
 
-    def step(images: torch.Tensor, mask: torch.Tensor, targets: Dict
+    def step(inputs: Sequence[torch.Tensor], targets: Dict
              ) -> Tuple[List[str], torch.Tensor]:
         model.train()
-        out = to_float32(model(images, mask))
+        out = to_float32(model(*inputs, **kwargs))
         loss, metrics = criterion(out, targets)
         optimizer.backward(loss)
         metrics["grad_norm"] = optimizer.step()
@@ -55,16 +59,31 @@ def make_detr_train_step(model: nn.Module, optimizer: TrainOptimizer,
     return step
 
 
-def make_eval_step(model: nn.Module, criterion: Callable = detr_criterion
-                   ) -> Callable:
-    """``step(images, mask, targets)`` -> (outputs, sorted metric keys,
-    packed metrics), in eval mode without gradients."""
+def make_detr_train_step(model: nn.Module, optimizer: TrainOptimizer,
+                         criterion: Callable = detr_criterion) -> Callable:
+    """``step(images, mask, targets)`` -> (sorted metric keys, packed
+    metrics), including ``grad_norm``."""
+    step = make_train_step(model, optimizer, criterion)
+
+    def detr_step(images: torch.Tensor, mask: torch.Tensor, targets: Dict
+                  ) -> Tuple[List[str], torch.Tensor]:
+        return step((images, mask), targets)
+
+    return detr_step
+
+
+def make_eval_step(model: nn.Module, criterion: Callable = detr_criterion,
+                   forward_kwargs: Optional[Dict] = None) -> Callable:
+    """``step(inputs, targets)`` -> (outputs, sorted metric keys, packed
+    metrics), ``model(*inputs, **forward_kwargs)`` in eval mode without
+    gradients."""
+    kwargs = dict(forward_kwargs or {})
 
     @torch.no_grad()
-    def step(images: torch.Tensor, mask: torch.Tensor, targets: Dict
+    def step(inputs: Sequence[torch.Tensor], targets: Dict
              ) -> Tuple[Dict, List[str], torch.Tensor]:
         model.eval()
-        out = model(images, mask)
+        out = model(*inputs, **kwargs)
         _, metrics = criterion(to_float32(out), targets)
         return (out, *pack_metrics(metrics))
 

@@ -4,7 +4,12 @@
 A Trainer owns the model and its criterion (one train step and one eval
 step), the optimizer, checkpointing (best and last by a monitored metric),
 logging and the callbacks. ``fit`` runs epochs of the train loader with
-periodic validation. The model trains on the device its parameters are on.
+periodic validation. The model trains on the device its parameters are on;
+a batch's ``inputs`` are the model's positional arguments, so one Trainer
+serves the detectors, the panoptic head and RAFT. Its factories may hand it
+a prebuilt ``optimizer`` (a frozen detector, a schedule), the forward's
+keyword arguments (RAFT's ``iters``) and the ``inference_fn`` that the AP
+and PQ callbacks call on validation outputs.
 
 Each train batch is prepared on the host, copied to the card by
 non-blocking copies from pinned memory, stepped, and its metrics come back
@@ -26,7 +31,7 @@ from .checkpoint import CheckpointManager
 from .experiment import get_expe_infos
 from .logger import make_logger
 from .state import TrainOptimizer
-from .step import make_detr_train_step, make_eval_step
+from .step import make_eval_step, make_train_step
 
 
 def to_device(tree, device: torch.device):
@@ -47,6 +52,9 @@ class Trainer:
 
     def __init__(self, model: nn.Module, criterion: Callable,
                  prepare_batch: Callable,
+                 inference_fn: Optional[Callable] = None,
+                 optimizer: Optional[TrainOptimizer] = None,
+                 forward_kwargs: Optional[Dict] = None,
                  lr: float = 1e-4, lr_backbone: float = 1e-5,
                  weight_decay: float = 1e-4, grad_clip: float = 0.1,
                  accumulate_grad_batches: int = 1,
@@ -63,12 +71,14 @@ class Trainer:
         self.model = model
         self.device = next(model.parameters()).device
         self.prepare_batch = prepare_batch
-        self.optimizer = TrainOptimizer(
-            model, lr=lr, lr_backbone=lr_backbone, weight_decay=weight_decay,
-            grad_clip=grad_clip, accumulate_steps=accumulate_grad_batches)
-        self.train_step = make_detr_train_step(model, self.optimizer,
-                                               criterion)
-        self.eval_step = make_eval_step(model, criterion)
+        self.inference_fn = inference_fn
+        self.optimizer = optimizer if optimizer is not None else \
+            TrainOptimizer(model, lr=lr, lr_backbone=lr_backbone,
+                           weight_decay=weight_decay, grad_clip=grad_clip,
+                           accumulate_steps=accumulate_grad_batches)
+        self.train_step = make_train_step(model, self.optimizer, criterion,
+                                          forward_kwargs)
+        self.eval_step = make_eval_step(model, criterion, forward_kwargs)
         self.expe_name, self.run_id, self.ckpt_dir = get_expe_infos(
             project, expe_name, log_dir=log_dir, run_id=run_id)
         self.logger = make_logger(log, self.ckpt_dir)
@@ -116,9 +126,9 @@ class Trainer:
                 if self.limit_train_batches and i >= self.limit_train_batches:
                     break
                 prepared = self.prepare_batch(raw)
-                images, mask = to_device(prepared["inputs"], self.device)
+                inputs = to_device(prepared["inputs"], self.device)
                 targets = to_device(prepared["targets"], self.device)
-                keys, packed = self.train_step(images, mask, targets)
+                keys, packed = self.train_step(inputs, targets)
                 self.global_step += 1
                 # the batch's one host synchronisation
                 metrics = dict(zip(keys, packed.cpu().tolist()))
@@ -147,9 +157,9 @@ class Trainer:
             if self.limit_val_batches and i >= self.limit_val_batches:
                 break
             prepared = self.prepare_batch(raw, training=False)
-            images, mask = to_device(prepared["inputs"], self.device)
+            inputs = to_device(prepared["inputs"], self.device)
             targets = to_device(prepared["targets"], self.device)
-            outputs, keys, packed = self.eval_step(images, mask, targets)
+            outputs, keys, packed = self.eval_step(inputs, targets)
             metrics = dict(zip(keys, packed.cpu().tolist()))
             for cb in self.callbacks:
                 cb.on_val_batch_end(self, outputs, prepared, metrics)

@@ -92,6 +92,29 @@
     a request); then ``commands.eval_on_coco --sample --limit_batches 2``
     for ``--model panoptic_deformable`` and ``--model panoptic`` on the
     card (AP and PQ).
+14. Panoptic training (frozen detector, float32, TF32 off, 250 classes):
+    one train step of Deformable-DETR-R50 panoptic at bs2 640 px on the
+    MSDA kernel path against the plain path, and of DETR-R50 panoptic at
+    bs2 384x512 on the card against the CPU (losses, every head gradient,
+    matched queries); then each trains through
+    ``make_panoptic_trainer(...).fit`` at its serving batch (DETR bs8,
+    Deformable bs4, 640x640): step time, the host's time to prepare and
+    copy a batch, peak memory, 12 MSDA launches (Deformable) and no MSDA
+    backward pass a step, 2 Hungarian launches and one synchronising
+    operation a batch, the profile with device ms by region, every detector
+    parameter unchanged, the mask losses falling on a repeated batch.
+15. RAFT training: one float32 train step at bs2 184x248, 12 iterations,
+    the card against the CPU (loss, gradients, the cnet's running
+    statistics); then ``make_raft_trainer(num_steps=...).fit`` at the
+    reference's FlyingChairs stage, bs10 368x496, 12 iterations, on
+    textured pairs with a known shift made inside the step: step time,
+    pairs/s, peak memory, one sync a batch, the profile with device ms by
+    region (the lookup's gather backward on its own), the EPE falling on a
+    repeated batch.
+16. The training commands on the card: ``train_on_coco --sample --model
+    panoptic_deformable --fast_dev_run`` (its MSDA launches, no backward
+    pass, the PQ table), ``train_on_chairs --sample --max_steps 4`` and
+    ``eval_on_sintel --sample --ckpt_dir`` on its checkpoint.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
@@ -203,6 +226,15 @@ PANOPTIC_REGIONS = ("detector", "bbox_attention", "mask_head")
 PANOPTIC_BF16_TOL = {"forward": 1e-1, "head": 5e-2}
 # eval_on_coco's thresholds: softmax over the background class for DETR,
 # sigmoid at 0.2 for Deformable-DETR
+# panoptic training (frozen detector, float32) at the serving batches and
+# 640x640; the gates at bs2 (Deformable kernel vs plain path at 640 px, DETR
+# card vs CPU at 384x512)
+# RAFT training: the gate at bs2 184x248 card vs CPU; the reference's
+# FlyingChairs stage (train_standard.sh: bs10, 368x496, lr 4e-4, wd 1e-4),
+# 12 iterations; an EPE that falls on a repeated batch
+RAFT_GATE_BATCH, RAFT_GATE_HW = 2, (184, 248)
+RAFT_TRAIN_BATCH, RAFT_TRAIN_HW = 10, (368, 496)
+RAFT_TRAIN_STEPS, RAFT_OVERFIT_STEPS = 6, 12
 PANOPTIC_INFERENCE = {
     "detr_r50_panoptic": dict(threshold=0.0,
                               background_class=PANOPTIC_CLASSES,
@@ -1104,17 +1136,20 @@ def train_gate_phase(device):
     return dict(loss_err=loss_err, grad_err=grad_err)
 
 
-def train_profile(trainer, batch, device, n_steps=2):
+def train_profile(trainer, batch, device, n_steps=2, regions=None):
     """Device-busy time and idle share of train steps (device-only trace),
-    and their device time by op and by kernel."""
+    and their device time by op and by kernel. ``regions`` (a context
+    manager factory that labels the step's regions, the labels, and a
+    function that names the region of a backward op from its callers) adds
+    the device time by region from a trace of its own."""
     from torch.profiler import ProfilerActivity
     from aloception_tpu_torch.train.trainer import to_device
 
-    images, mask = to_device(batch["inputs"], device)
+    inputs = to_device(batch["inputs"], device)
     targets = to_device(batch["targets"], device)
 
     def step():
-        trainer.train_step(images, mask, targets)[1].cpu()
+        trainer.train_step(inputs, targets)[1].cpu()
 
     step()
     n_act, busy, window = _device_busy(
@@ -1163,8 +1198,18 @@ def train_profile(trainer, batch, device, n_steps=2):
         ms, share = per_step(keys, self_only)
         shares[label] = (ms, share)
         print(f"  {label}: {ms:.3f} ms per step, {share:.2%} of device-busy")
-    return dict(busy_ms=busy / n_steps / 1e3, idle=1 - busy / window,
-                parts=shares)
+    out = dict(busy_ms=busy / n_steps / 1e3, idle=1 - busy / window,
+               parts=shares)
+    if regions is not None:
+        # the regions' labels cost host time: a trace of their own
+        labels, names, backward = regions
+        with labels():
+            prof = _trace(step, [ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA], n_steps)
+        table = region_breakdown(prof, busy / n_steps, names, "train step",
+                                 n_steps, backward=backward, per="step")
+        out["region_ms"] = {r: sum(k.values()) for r, k in table.items()}
+    return out
 
 
 def train_phase(device):
@@ -1393,11 +1438,15 @@ def _op_kind(names):
     return "element-wise"
 
 
-def region_breakdown(prof, busy_us, regions, title, n_fwd=3):
-    """Device ms per forward of each labelled region of ``regions`` (the
-    rest is "other"), split by the kind of op that launched the kernels
-    (convolution, norm, matmul, avg_pool, gather, cat, cast/copy,
-    element-wise). Returns {region: {kind: ms}}."""
+def region_breakdown(prof, busy_us, regions, title, n_fwd=3, backward=None,
+                     per="forward"):
+    """Device ms per forward (or other call, ``per``) of each labelled
+    region of ``regions`` (the rest is "other"), split by the kind of op
+    that launched the kernels (convolution, norm, matmul, avg_pool, gather,
+    cat, cast/copy, element-wise). The autograd engine runs a backward in a
+    thread of its own, outside the forward's labels: ``backward`` names the
+    region of an op from its callers' names (innermost first), or None.
+    Returns {region: {kind: ms}}."""
     from torch.autograd import DeviceType
     table = {}
     for e in prof.events():
@@ -1412,11 +1461,13 @@ def region_breakdown(prof, busy_us, regions, title, n_fwd=3):
             if region == "other" and a.name in regions:
                 region = a.name
             a = a.cpu_parent
+        if region == "other" and backward is not None:
+            region = backward(names) or region
         kinds = table.setdefault(region, {})
         kind = _op_kind(names)
         kinds[kind] = kinds.get(kind, 0.0) + us / n_fwd / 1e3
     total = sum(sum(k.values()) for k in table.values())
-    print(f"{title} device ms per forward by region and kind of op (self "
+    print(f"{title} device ms per {per} by region and kind of op (self "
           f"times; {total:.3f} ms traced against {busy_us / 1e3:.3f} ms "
           f"device-busy):")
     for region, kinds in sorted(table.items(),
@@ -1860,6 +1911,527 @@ def panoptic_eval_phase():
     return results
 
 
+
+def panoptic_detector(name, device, seed, **kwargs):
+    """The detector of ``name``, built with ``return_intermediate`` and
+    random weights from a seeded generator on ``device``, in eval mode:
+    DETR-R50 (100 queries) or Deformable-DETR-R50 without refinement (300
+    queries), 250 classes."""
+    from aloception_tpu_torch.models.deformable_detr import deformable_detr_r50
+    from aloception_tpu_torch.models.detr import detr_r50
+    factory = detr_r50 if name == "detr_r50_panoptic" else deformable_detr_r50
+    return factory(num_classes=PANOPTIC_CLASSES, return_intermediate=True,
+                   device=device,
+                   generator=torch.Generator(device=device).manual_seed(seed),
+                   **kwargs)
+
+
+def panoptic_train_criterion(name):
+    """train_on_coco's criterion: the DETR base, or for Deformable-DETR the
+    focal base criterion and matcher."""
+    import functools
+    from aloception_tpu_torch.models.deformable_detr import (
+        deformable_criterion, focal_hungarian_match)
+    from aloception_tpu_torch.models.panoptic import panoptic_criterion
+    if name == "detr_r50_panoptic":
+        return panoptic_criterion
+    return functools.partial(panoptic_criterion,
+                             base_criterion=deformable_criterion,
+                             matcher=focal_hungarian_match)
+
+
+def panoptic_batch(batch_size, size, seed):
+    """A panoptic train batch of the synthetic sample on the CPU: the DETR
+    batch with its padded instance masks."""
+    from aloception_tpu_torch.train import CocoDetection2Detr
+    from aloception_tpu_torch.train.trainers import _make_panoptic_prepare
+    dm = CocoDetection2Detr(batch_size=batch_size, sample=True, size=size,
+                            return_masks=True)
+    return _make_panoptic_prepare(dm)(one_batch(dm.train_dataset, batch_size,
+                                                seed))
+
+
+def held_train_steps(got, want, tag, per_tensor=True):
+    """Two train steps' (metrics, gradients, matched queries or None) held:
+    every loss within 1e-4 relative, the matched queries equal, and each
+    gradient within 1e-3 of max|g|: with ``per_tensor``, its tensor's
+    largest magnitude (or 1e-3 of the largest of all where a tensor's
+    gradients are near 0: the biases of convolutions that a norm follows),
+    else the largest of all. Returns (loss error, gradient error)."""
+    (g_loss, g_grads, g_matched), (w_loss, w_grads, w_matched) = got, want
+    loss_err = max(abs(g_loss[k] - w_loss[k]) / max(abs(w_loss[k]), 1e-12)
+                   for k in w_loss if k.startswith("loss"))
+    if g_grads.keys() != w_grads.keys() or not w_grads:
+        raise AssertionError(f"{tag}: gradients of other parameters")
+    top = max(g.abs().max().item() for g in w_grads.values())
+    grad_err, worst = 0.0, None
+    for n, ref in w_grads.items():
+        scale = max(ref.abs().max().item(), 1e-3 * top) if per_tensor \
+            else top
+        err = (g_grads[n].cpu() - ref.cpu()).abs().max().item() / scale
+        if err > grad_err:
+            grad_err, worst = err, n
+    same = w_matched is None or torch.equal(g_matched.cpu(), w_matched.cpu())
+    print(f"{tag}: loss_total {g_loss['loss_total']:.6f} / "
+          f"{w_loss['loss_total']:.6f}, max relative loss error "
+          f"{loss_err:.3e} (tol 1e-4), max gradient error {grad_err:.3e} of "
+          f"max|g| {'of its tensor' if per_tensor else 'over the model'} "
+          f"(tol 1e-3; {worst}) over {len(w_grads)} parameters"
+          + ("" if w_matched is None else f", matched queries equal: {same}"))
+    if not (loss_err <= 1e-4 and grad_err <= 1e-3 and same):
+        raise AssertionError(f"{tag}: the steps disagree")
+    return loss_err, grad_err
+
+
+def panoptic_train_gate_phase(device):
+    """One float32 panoptic train step (frozen detector, TF32 off), twice:
+    deformable_detr_r50_panoptic at bs2 640x640 on the card, the MSDA
+    kernel path against the plain path (the detector's dropout on, both
+    steps seeded alike; the offset and weight kernels of every MSDeformAttn
+    drawn at random), and detr_r50_panoptic at bs2 384x512, the card
+    against the CPU (the detector's dropout 0, so that the two devices'
+    draws cannot differ). Losses, every head gradient and the final layer's
+    matched queries (``held_train_steps``); the kernel step launches the
+    MSDA kernel 12 times with no backward pass, and the Hungarian kernel
+    twice (the base criterion's and the mask losses' matching)."""
+    from aloception_tpu_torch.models.deformable_detr import ms_deform_attn \
+        as msda_module
+    from aloception_tpu_torch.models.deformable_detr import (
+        focal_hungarian_match)
+    from aloception_tpu_torch.models.detr import hungarian_match
+    from aloception_tpu_torch.models.panoptic import DetrPanoptic
+    from aloception_tpu_torch.ops.ms_deform_attn import ms_deform_attn_torch
+    from aloception_tpu_torch.train.step import to_float32
+    from aloception_tpu_torch.train.trainer import to_device
+
+    def step(model, batch, crit, matcher, dev):
+        torch.manual_seed(0)
+        model.zero_grad(set_to_none=True)
+        inputs = to_device(batch["inputs"], dev)
+        targets = to_device(batch["targets"], dev)
+        out = to_float32(model(*inputs))
+        loss, metrics = crit(out, targets)
+        loss.backward()
+        counts = _counts()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters() if p.grad is not None}
+        matched, _ = matcher(out, targets)
+        return ({k: v.item() for k, v in metrics.items()}, grads,
+                matched), counts
+
+    gate = {}
+    name = "deformable_detr_r50_panoptic"
+    model = DetrPanoptic(panoptic_detector(name, device, seed=80)).train()
+    g = torch.Generator(device=device).manual_seed(81)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, msda_module.MSDeformAttn):
+                mod.sampling_offsets.weight.normal_(0.0, 0.1, generator=g)
+                mod.attention_weights.weight.normal_(0.0, 0.1, generator=g)
+    batch = panoptic_batch(GATE_BATCH, SIZE, seed=82)
+    crit = panoptic_train_criterion(name)
+    _reset_counts()
+    got, counts = step(model, batch, crit, focal_hungarian_match, device)
+    _reset_counts()
+    with mock.patch.object(msda_module, "ms_deform_attn",
+                           ms_deform_attn_torch):
+        want, plain_counts = step(model, batch, crit, focal_hungarian_match,
+                                  device)
+    print(f"{name} train step: (msda launches, backward passes, hungarian "
+          f"launches) {counts} on the kernel path, {plain_counts} on the "
+          "plain path")
+    if counts != (MSDA_CALLS_PER_FORWARD, 0, 2) or plain_counts[:2] != (0, 0):
+        raise AssertionError(f"panoptic train gate: counts {counts}, "
+                             f"{plain_counts}")
+    gate[name] = held_train_steps(
+        got, want, f"{name} train gate fp32 bs{GATE_BATCH} {SIZE}: kernel "
+        "path vs plain path")
+    del model, got, want
+    torch.cuda.empty_cache()
+
+    name = "detr_r50_panoptic"
+    cpu_model = DetrPanoptic(panoptic_detector(name, "cpu", seed=83,
+                                               dropout=0.0)).train()
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    batch = panoptic_batch(GATE_BATCH, PANOPTIC_GATE_HW, seed=84)
+    crit = panoptic_train_criterion(name)
+    got, _ = step(gpu_model, batch, crit, hungarian_match, device)
+    want, _ = step(cpu_model, batch, crit, hungarian_match,
+                   torch.device("cpu"))
+    gate[name] = held_train_steps(
+        got, want, f"{name} train gate fp32 bs{GATE_BATCH} "
+        f"{PANOPTIC_GATE_HW}: card vs cpu")
+    return gate
+
+
+def labelled_step(trainer, criterion, forward_kwargs=None):
+    """A patch of ``trainer.train_step`` by the same step with its
+    criterion labelled "criterion"."""
+    from aloception_tpu_torch.train import make_train_step
+    return mock.patch.object(trainer, "train_step", make_train_step(
+        trainer.model, trainer.optimizer, _labelled(criterion, "criterion"),
+        forward_kwargs))
+
+
+def _backward_region(names):
+    return "backward" if any(n.startswith("autograd::engine")
+                             for n in names) else None
+
+
+def prepare_times(prepare, frames, device):
+    """(host ms to prepare a batch of ``frames``, ms to copy it to the card
+    and synchronise, its bytes), and the prepared batch."""
+    from aloception_tpu_torch.train.trainer import to_device
+    t0 = time.perf_counter()
+    batch = prepare(frames)
+    t1 = time.perf_counter()
+    to_device({"inputs": batch["inputs"], "targets": batch["targets"]},
+              device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in [*batch["inputs"], *batch["targets"].values()])
+    return ((t1 - t0) * 1e3, (t2 - t1) * 1e3, nbytes), batch
+
+
+def panoptic_train_regions(trainer, criterion):
+    """(labels, names, backward) for ``train_profile``: the detector, the
+    attention maps, the mask head's forward, the criterion and the
+    optimizer's clip and update labelled; the backward's ops are
+    "backward"."""
+    model = trainer.model
+
+    def labels():
+        stack = contextlib.ExitStack()
+        for obj, attr, label in (
+                (model.detr, "forward", "detector"),
+                (model.bbox_attention, "forward", "attention maps"),
+                (model.mask_head, "forward", "mask head forward"),
+                (trainer.optimizer, "step", "optimizer")):
+            stack.enter_context(mock.patch.object(
+                obj, attr, _labelled(getattr(obj, attr), label)))
+        stack.enter_context(labelled_step(trainer, criterion))
+        return stack
+
+    return labels, ("detector", "attention maps", "mask head forward",
+                    "criterion", "optimizer"), _backward_region
+
+
+def panoptic_train_phase(name, device):
+    """``name`` (float32, 250 classes, random weights) trains its panoptic
+    head on the frozen detector through ``make_panoptic_trainer(...).fit``
+    at its serving batch, 640x640: a warm-up step and TRAIN_STEPS timed
+    ones (frames made inside the step), with per step 12 MSDA launches for
+    Deformable-DETR (0 for DETR), no MSDA backward pass, 2 Hungarian
+    launches and one synchronising operation; the profile with device ms by
+    region; every detector parameter unchanged (max|diff| 0); the mask
+    losses (DICE + focal) falling over OVERFIT_STEPS on one repeated
+    batch."""
+    import tempfile
+    from aloception_tpu_torch.train import (CocoDetection2Detr,
+                                            make_panoptic_trainer)
+
+    batch_size = PANOPTIC_BATCH[name]
+    deformable = name != "detr_r50_panoptic"
+    dm = CocoDetection2Detr(batch_size=batch_size, sample=True,
+                            size=TRAIN_SIZE, return_masks=True)
+    batches = SampledLoader(dm.train_dataset, batch_size, 1 + TRAIN_STEPS,
+                            seed=91)
+    recorder = make_recorder()
+    with tempfile.TemporaryDirectory() as log_dir:
+        trainer = make_panoptic_trainer(
+            detector=panoptic_detector(name, device, seed=90),
+            data_module=dm, criterion=panoptic_train_criterion(name),
+            log_dir=log_dir, callbacks=[recorder], seed=0)
+        model = trainer.model
+        det0 = {k: v.clone() for k, v in model.detr.state_dict().items()}
+        torch.cuda.reset_peak_memory_stats()
+        per_batch = recorded_fit(trainer, recorder, batches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        _check_losses(per_batch, f"{name} training")
+        want = (MSDA_CALLS_PER_FORWARD if deformable else 0, 0, 2)
+        for i, (_, counts, syncs, _) in enumerate(per_batch):
+            if counts != want or syncs != 1:
+                raise AssertionError(
+                    f"{name} train batch {i}: (msda launches, msda backward "
+                    f"passes, hungarian launches) {counts}, not {want}; "
+                    f"{syncs} synchronising operations")
+        timed = [dt for dt, _, _, _ in per_batch[1:]]
+        step_s = sum(timed) / len(timed)
+        frames_ms = sum(batches.seconds[1:]) / len(timed) * 1e3
+        print(f"{name} training fp32 bs{batch_size} {TRAIN_SIZE} "
+              f"({batch_size * model.detr.num_queries} query maps, frozen "
+              f"detector): {len(per_batch)} steps through Trainer.fit; "
+              f"warm-up {per_batch[0][0] * 1e3:.1f} ms; timed step ms "
+              f"{[round(dt * 1e3, 2) for dt in timed]}, mean "
+              f"{step_s * 1e3:.2f} ms = {batch_size / step_s:.2f} images/s, "
+              f"of which making and transforming the frames on the host "
+              f"{frames_ms:.2f} ms; peak memory {peak_gib:.2f} GiB; per step "
+              f"(msda launches, msda backward passes, hungarian launches) "
+              f"{want}; synchronising operations per batch "
+              f"{[s for _, _, s, _ in per_batch]}; loss_total "
+              f"{[round(m['loss_total'], 4) for _, _, _, m in per_batch]}")
+        fixed = one_batch(dm.train_dataset, batch_size, seed=92)
+        prep, prepared = prepare_times(trainer.prepare_batch, fixed, device)
+        print(f"{name}: preparing a batch of {batch_size} frames on the host "
+              f"{prep[0]:.2f} ms, copying it to the card {prep[1]:.2f} ms "
+              f"({prep[2] / 2**20:.1f} MiB, the padded instance masks "
+              f"{prepared['targets']['masks'].numel() * 4 / 2**20:.1f})")
+        prof = train_profile(trainer, prepared, device,
+                             regions=panoptic_train_regions(
+                                 trainer, panoptic_train_criterion(name)))
+
+        recorder.caught = []
+        overfit = recorded_fit(trainer, recorder, [fixed] * OVERFIT_STEPS)
+        _check_losses(overfit, f"{name} overfit")
+        mask_losses = [m["loss_DICE"] + m["loss_focal"]
+                       for _, _, _, m in overfit]
+        det_delta = max((v.float() - det0[k].float()).abs().max().item()
+                        for k, v in model.detr.state_dict().items()
+                        if v.is_floating_point())
+        print(f"{name}: one repeated batch, {OVERFIT_STEPS} steps: mask "
+              f"loss (DICE + focal) {[round(v, 4) for v in mask_losses]}; "
+              f"max|diff| of every detector parameter and buffer after "
+              f"{len(per_batch) + 2 + OVERFIT_STEPS} steps: {det_delta}")
+        if not mask_losses[-1] < mask_losses[0]:
+            raise AssertionError(f"{name}: the mask loss did not fall on a "
+                                 "repeated batch")
+        if det_delta != 0.0:
+            raise AssertionError(f"{name}: the frozen detector moved by "
+                                 f"{det_delta}")
+    msda = tuple(sum(c[i] for _, c, _, _ in per_batch) for i in range(3))
+    return dict(batch=batch_size, step_ms=step_s * 1e3, frames_ms=frames_ms,
+                prepare_ms=prep[0], copy_ms=prep[1], batch_bytes=prep[2],
+                peak_gib=peak_gib, launches=msda[0], backward_passes=msda[1],
+                hungarian_launches=msda[2], syncs_per_batch=1,
+                mask_loss=mask_losses, detector_max_abs_delta=det_delta,
+                profile=prof)
+
+
+def shifted_pairs(n, hw, seed):
+    """``n`` textured pairs at ``hw``, each a crop of a noise image and the
+    crop moved by a drawn (dx, dy) in [-6, 6] (content moves by +(dx, dy),
+    the flow's label), as T=2 Frames with a ``flow_forward`` Flow and an
+    all-zero occlusion Mask, made from numpy seeds when indexed."""
+    import numpy as np
+    from aloception_tpu_torch.aloscene import Flow, Frame, Mask
+    from aloception_tpu_torch.aloscene.spatial import _cat_batched
+    H, W = hw
+
+    class Pairs:
+        def __len__(self):
+            return n
+
+        def __getitem__(self, idx):
+            rng = np.random.RandomState(seed + idx)
+            img = rng.uniform(0, 255, (3, H + 16, W + 16)).astype(np.float32)
+            dx, dy = rng.randint(-6, 7), rng.randint(-6, 7)
+            f0 = Frame(torch.from_numpy(img[:, 8:8 + H, 8:8 + W].copy()),
+                       normalization="255")
+            f1 = Frame(torch.from_numpy(
+                img[:, 8 - dy:8 - dy + H, 8 - dx:8 - dx + W].copy()),
+                normalization="255")
+            flow = torch.empty(2, H, W)
+            flow[0], flow[1] = float(dx), float(dy)
+            f0.append_flow(Flow(flow, occlusion=Mask(torch.zeros(1, H, W))),
+                           "flow_forward")
+            return _cat_batched([f0.temporal(), f1.temporal()],
+                                axis_name="T")
+
+    return Pairs()
+
+
+def raft_train_gate_phase(device):
+    """One float32 RAFT train step (TF32 off) at bs2 184x248, 12
+    iterations, the all-iterations path with BatchNorm in train mode: the
+    card against the same model on the CPU. The sequence loss and metrics,
+    every gradient (``held_train_steps``), and the cnet's running means and
+    variances after the step within 1e-5."""
+    from aloception_tpu_torch.models.raft import raft, raft_sequence_loss
+    from aloception_tpu_torch.train import Data2RAFT
+
+    batch = Data2RAFT(sample=True).prepare_batch(
+        [shifted_pairs(RAFT_GATE_BATCH, RAFT_GATE_HW, 100)[i]
+         for i in range(RAFT_GATE_BATCH)])
+    cpu_model = raft(device="cpu",
+                     generator=torch.Generator().manual_seed(101)).train()
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    stats0 = {n: b.clone() for n, b in cpu_model.named_buffers()
+              if n.endswith(("running_mean", "running_var"))}
+
+    def step(model, dev):
+        flows = model(*(x.to(dev) for x in batch["inputs"]), iters=RAFT_ITERS)
+        loss, metrics = raft_sequence_loss(
+            flows, batch["targets"]["flow"].to(dev),
+            batch["targets"]["valid"].to(dev))
+        loss.backward()
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        stats = {n: b.detach().cpu() for n, b in model.named_buffers()
+                 if n.endswith(("running_mean", "running_var"))}
+        return ({k: v.item() for k, v in metrics.items()}, grads, None), stats
+
+    got, got_stats = step(gpu_model, device)
+    want, want_stats = step(cpu_model, torch.device("cpu"))
+    # gradients against the model's largest: at init the encoders' are
+    # 1e-3 of it, and through 12 recurrent steps float32 holds them to a few
+    # percent only (float32 against float64 on one CPU differs as much)
+    errs = held_train_steps(
+        got, want, f"raft train gate fp32 bs{RAFT_GATE_BATCH} {RAFT_GATE_HW} "
+        f"{RAFT_ITERS} iterations: card vs cpu", per_tensor=False)
+    stats_err = max((got_stats[n] - w).abs().max().item()
+                    for n, w in want_stats.items())
+    moved = max((w - stats0[n]).abs().max().item()
+                for n, w in want_stats.items())
+    print(f"raft train gate: cnet running statistics card vs cpu max|diff| "
+          f"{stats_err:.3e} (tol 1e-5) over {len(want_stats)} buffers, moved "
+          f"by up to {moved:.3e} in the step")
+    if not (stats_err <= 1e-5 and moved > 0):
+        raise AssertionError(f"raft running statistics: {stats_err}, "
+                             f"moved {moved}")
+    return dict(loss_err=errs[0], grad_err=errs[1], stats_err=stats_err)
+
+
+RAFT_TRAIN_REGIONS = RAFT_REGIONS + ("criterion", "optimizer")
+
+
+def raft_train_regions(trainer):
+    """(labels, names, backward) for ``train_profile``: the forward's
+    regions as ``raft_regions``, the sequence loss, the optimizer's clip
+    and update, and the backward split into the lookup's gather backward
+    and the rest."""
+    from aloception_tpu_torch.train.trainers import _raft_criterion
+
+    def labels():
+        stack = raft_regions(trainer.model)
+        stack.enter_context(mock.patch.object(
+            trainer.optimizer, "step",
+            _labelled(trainer.optimizer.step, "optimizer")))
+        stack.enter_context(labelled_step(trainer, _raft_criterion,
+                                          {"iters": RAFT_ITERS}))
+        return stack
+
+    def backward(names):
+        if any("GatherBackward" in n for n in names):
+            return "lookup backward (gather)"
+        return _backward_region(names)
+
+    return labels, RAFT_TRAIN_REGIONS, backward
+
+
+def raft_train_phase(device):
+    """RAFT (float32, random weights) trains through
+    ``make_raft_trainer(num_steps=...).fit`` at the reference's FlyingChairs
+    stage: bs10 at 368x496, 12 iterations, AdamW 4e-4 with the OneCycle
+    schedule, on textured pairs with a known shift made inside the step: a
+    warm-up step and RAFT_TRAIN_STEPS timed ones, one synchronising
+    operation a batch; the profile with device ms by region (the lookup's
+    gather backward on its own); the EPE falling over RAFT_OVERFIT_STEPS on
+    one repeated batch."""
+    import tempfile
+    from aloception_tpu_torch.models.raft import raft
+    from aloception_tpu_torch.train import Data2RAFT, make_raft_trainer
+
+    pairs = shifted_pairs(4 * RAFT_TRAIN_BATCH, RAFT_TRAIN_HW, 110)
+    dm = Data2RAFT(batch_size=RAFT_TRAIN_BATCH, sample=True)
+    batches = SampledLoader(pairs, RAFT_TRAIN_BATCH, 1 + RAFT_TRAIN_STEPS,
+                            seed=111)
+    recorder = make_recorder()
+    model = raft(device=device,
+                 generator=torch.Generator(device=device).manual_seed(112))
+    with tempfile.TemporaryDirectory() as log_dir:
+        trainer = make_raft_trainer(
+            model=model, data_module=dm, iters=RAFT_ITERS,
+            num_steps=1 + RAFT_TRAIN_STEPS + 2 + RAFT_OVERFIT_STEPS,
+            log_dir=log_dir, callbacks=[recorder], seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        per_batch = recorded_fit(trainer, recorder, batches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        _check_losses(per_batch, "raft training")
+        for i, (_, counts, syncs, _) in enumerate(per_batch):
+            if syncs != 1 or counts != (0, 0, 0):
+                raise AssertionError(f"raft train batch {i}: {syncs} "
+                                     f"synchronising operations, kernel "
+                                     f"counts {counts}")
+        timed = [dt for dt, _, _, _ in per_batch[1:]]
+        step_s = sum(timed) / len(timed)
+        frames_ms = sum(batches.seconds[1:]) / len(timed) * 1e3
+        print(f"raft training fp32 bs{RAFT_TRAIN_BATCH} {RAFT_TRAIN_HW} "
+              f"{RAFT_ITERS} iterations (TF32: cudnn "
+              f"{torch.backends.cudnn.allow_tf32}): {len(per_batch)} steps "
+              f"through Trainer.fit; warm-up {per_batch[0][0] * 1e3:.1f} ms; "
+              f"timed step ms {[round(dt * 1e3, 2) for dt in timed]}, mean "
+              f"{step_s * 1e3:.2f} ms = {RAFT_TRAIN_BATCH / step_s:.2f} "
+              f"pairs/s, of which making the pairs on the host "
+              f"{frames_ms:.2f} ms; peak memory {peak_gib:.2f} GiB; "
+              f"synchronising operations per batch "
+              f"{[s for _, _, s, _ in per_batch]}; loss_total "
+              f"{[round(m['loss_total'], 4) for _, _, _, m in per_batch]}; "
+              f"epe {[round(m['epe'], 4) for _, _, _, m in per_batch]}")
+        fixed = one_batch(pairs, RAFT_TRAIN_BATCH, seed=113)
+        prep, prepared = prepare_times(dm.prepare_batch, fixed, device)
+        print(f"raft: preparing a batch of {RAFT_TRAIN_BATCH} pairs on the "
+              f"host {prep[0]:.2f} ms, copying it to the card {prep[1]:.2f} "
+              f"ms ({prep[2] / 2**20:.1f} MiB)")
+        prof = train_profile(trainer, prepared, device,
+                             regions=raft_train_regions(trainer))
+        recorder.caught = []
+        overfit = recorded_fit(trainer, recorder,
+                               [fixed] * RAFT_OVERFIT_STEPS)
+        _check_losses(overfit, "raft overfit")
+        epes = [m["epe"] for _, _, _, m in overfit]
+        print(f"raft: one repeated batch, {RAFT_OVERFIT_STEPS} steps: epe "
+              f"{[round(v, 4) for v in epes]}")
+        if not epes[-1] < epes[0]:
+            raise AssertionError("the EPE did not fall on a repeated batch")
+    return dict(batch=RAFT_TRAIN_BATCH, step_ms=step_s * 1e3,
+                pairs_per_s=RAFT_TRAIN_BATCH / step_s, frames_ms=frames_ms,
+                prepare_ms=prep[0], copy_ms=prep[1], batch_bytes=prep[2],
+                peak_gib=peak_gib, syncs_per_batch=1, epe=epes,
+                profile=prof)
+
+
+def train_commands_phase():
+    """The training commands on the card: ``train_on_coco --sample --model
+    panoptic_deformable --fast_dev_run`` (2 train batches and 1 val batch:
+    36 MSDA launches, no backward pass; the PQ callback prints), then
+    ``train_on_chairs --sample --max_steps 4`` and ``eval_on_sintel
+    --sample --ckpt_dir`` on its checkpoint."""
+    import io
+    import math
+    import tempfile
+    from aloception_tpu_torch.commands import (eval_on_sintel,
+                                               train_on_chairs, train_on_coco)
+    with tempfile.TemporaryDirectory() as log_dir:
+        _reset_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            trainer = train_on_coco.main(
+                ["--sample", "--model", "panoptic_deformable",
+                 "--fast_dev_run", "--log_dir", log_dir])
+        torch.cuda.synchronize()
+        msda, backward, hung = _counts()
+        text = out.getvalue()
+        print(text[-600:])
+        if not ("PQ[all]" in text and trainer.global_step == 2
+                and msda == 3 * MSDA_CALLS_PER_FORWARD and backward == 0):
+            raise AssertionError(f"train_on_coco panoptic_deformable: msda "
+                                 f"{msda}, backward {backward}")
+        pq = trainer.last_val_metrics
+        chairs = train_on_chairs.main(["--sample", "--max_steps", "4",
+                                       "--log_dir", log_dir])
+        epe = eval_on_sintel.main(["--sample", "--ckpt_dir",
+                                   chairs.ckpt_dir, "--limit_samples", "2"])
+        if not (chairs.global_step == 4 and math.isfinite(epe)):
+            raise AssertionError(f"train_on_chairs {chairs.global_step} "
+                                 f"steps, eval EPE {epe}")
+    print(f"train_on_coco panoptic_deformable on the card: msda launches "
+          f"{msda}, backward passes {backward}, hungarian launches {hung}; "
+          f"train_on_chairs 4 steps, eval_on_sintel from its checkpoint: "
+          f"EPE {epe:.4f}")
+    return dict(msda_launches=msda, backward_passes=backward,
+                hungarian_launches=hung, val=pq, chairs_epe=epe)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: "
@@ -1921,13 +2493,28 @@ def main():
         del model
         torch.cuda.empty_cache()
     panoptic["eval"] = panoptic_eval_phase()
+    torch.cuda.empty_cache()
+    panoptic_train = dict(gate=panoptic_train_gate_phase(device))
+    torch.cuda.empty_cache()
+    for name in PANOPTIC_BATCH:
+        panoptic_train[name] = panoptic_train_phase(name, device)
+        torch.cuda.empty_cache()
+    raft_train = dict(gate=raft_train_gate_phase(device))
+    raft_train.update(raft_train_phase(device))
+    torch.cuda.empty_cache()
+    commands = train_commands_phase()
+    pan_train = panoptic_train["deformable_detr_r50_panoptic"]
     pan_msda = {
         "panoptic_forward":
             panoptic["deformable_detr_r50_panoptic"]["msda_launches"],
         "panoptic_frame": panoptic["deformable_detr_r50_panoptic"]["frame"][
             "msda_launches"],
         "panoptic_eval": panoptic["eval"]["panoptic_deformable"][
-            "msda_launches"]}
+            "msda_launches"],
+        "panoptic_train": pan_train["launches"],
+        "panoptic_train_command": commands["msda_launches"]}
+    hung_pan = sum(panoptic_train[n]["hungarian_launches"]
+                   for n in PANOPTIC_BATCH)
 
     enc, dec = sites["encoder"], sites["decoder"]
     msda_train, msda_backward, hung_train = train["launches"]
@@ -1943,8 +2530,14 @@ def main():
                              "frame": frame_launches,
                              "train": msda_train, **pan_msda},
         # the training path's backward: the gradient of the plain version,
-        # recomputed through the autograd Function
-        "backward_passes": msda_backward,
+        # recomputed through the autograd Function; the panoptic paths'
+        # detector is frozen and takes none
+        "backward_passes": msda_backward + pan_train["backward_passes"]
+        + commands["backward_passes"],
+        "backward_passes_by_path": {
+            "train": msda_backward,
+            "panoptic_train": pan_train["backward_passes"],
+            "panoptic_train_command": commands["backward_passes"]},
         "max_abs_err": max(v for k, v in errs.items() if "float32" in k),
         "max_abs_err_bf16": max(v for k, v in errs.items()
                                 if "bfloat16" in k),
@@ -1969,9 +2562,10 @@ def main():
         "source": "aloception_tpu_torch/csrc/hungarian.cu",
         # the JAX package's on-device JV (XLA loops, not a Pallas kernel)
         "replaces": "aloception_tpu/ops/hungarian.py:28",
-        "launches": hung_train,
+        "launches": hung_train + detr_train["launches"] + hung_pan,
         "launches_by_path": {"train": hung_train,
-                             "detr_train": detr_train["launches"]},
+                             "detr_train": detr_train["launches"],
+                             "panoptic_train": hung_pan},
         # the largest query-index difference from the plain version's
         # assignment, and the targets matched differently, as measured
         "max_abs_err": hung_diff["max_abs_err"],
@@ -1987,7 +2581,9 @@ def main():
                   "detr_frames_ms": detr_train["frames_ms"],
                   "deformable_peak_gib": train["peak_gib"],
                   "deformable_profile": train["profile"],
-                  "detr_step_ms": detr_train["step_ms"]},
+                  "detr_step_ms": detr_train["step_ms"],
+                  "panoptic": panoptic_train, "raft": raft_train,
+                  "commands": commands},
         # RAFT runs no kernel of the port: cuDNN, cuBLAS and PyTorch ops
         "raft": {"parity": raft_errs,
                  "regions": raft_serve.pop("regions"), **raft_serve,

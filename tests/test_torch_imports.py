@@ -50,6 +50,18 @@ def test_panoptic_modules_are_checked(module):
     assert PKG / module in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "train/step.py", "train/trainer.py", "train/trainers.py",
+    "train/callbacks.py", "train/data_modules.py",
+    "models/panoptic/criterion.py", "models/raft/criterion.py",
+    "alodataset/flying_chairs2.py", "commands/train_on_coco.py",
+    "commands/train_on_chairs.py"])
+def test_training_modules_are_checked(module):
+    """The panoptic and RAFT training slice's modules are among the sources
+    checked below."""
+    assert PKG / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PKG)))
 def test_no_jax_import(path):
     roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))

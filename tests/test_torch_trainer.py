@@ -171,7 +171,7 @@ def test_train_on_coco_command(model, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--multiscale"], ["--bf16"],
-                                   ["--model", "panoptic"], []])
+                                   ["--tp", "2"], []])
 def test_train_on_coco_refuses_what_is_not_ported(flags, tmp_path):
     """Flags of later ROADMAP items, and COCO on disk (no --sample),
     raise."""
