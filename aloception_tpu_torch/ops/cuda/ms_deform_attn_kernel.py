@@ -117,19 +117,15 @@ def ms_deform_attn_cuda(value: torch.Tensor,
     dtype; the sums are taken in float32. ``plan`` overrides
     ``launch_plan``'s choice; the kernel refuses one it cannot run.
 
-    Where grad is enabled and an input requires it, the call goes through
-    ``ops.ms_deform_attn.MSDeformAttnFunction``, whose forward is this kernel
-    and whose backward is the gradient of the plain version; its backward
-    passes are counted in ``ms_deform_attn_cuda.backward_passes``.
+    This launcher has no gradient: the model reaches it through the
+    operator ``aloception_tpu_torch::ms_deform_attn``
+    (``ops.ms_deform_attn``), whose backward, the plain version's gradient,
+    counts its passes in ``ms_deform_attn_cuda.backward_passes``. Each
+    launch adds one to ``ms_deform_attn_cuda.launches`` and its plan to
+    ``ms_deform_attn_cuda.plans``, keyed by (B, Lq, Len_v, dtype).
     """
     shapes = tuple((int(h), int(w)) for h, w in value_spatial_shapes)
     tensors = (value, sampling_locations, attention_weights)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        from ..ms_deform_attn import MSDeformAttnFunction
-        forward = functools.partial(ms_deform_attn_cuda, plan=plan)
-        return MSDeformAttnFunction.apply(forward, value, shapes,
-                                          sampling_locations,
-                                          attention_weights)
     if value.dim() != 4:
         raise ValueError(f"value must be (B, Len_v, nH, C), got {tuple(value.shape)}")
     B, Len_v, nH, C = value.shape
@@ -174,8 +170,10 @@ def ms_deform_attn_cuda(value: torch.Tensor,
         raise RuntimeError(f"ms_deform_attn CUDA launch failed: cudaError {err} "
                            f"(plan {plan})")
     ms_deform_attn_cuda.launches += 1
+    ms_deform_attn_cuda.plans[(B, Lq, Len_v, str(value.dtype))] = plan
     return out
 
 
 ms_deform_attn_cuda.launches = 0
 ms_deform_attn_cuda.backward_passes = 0
+ms_deform_attn_cuda.plans = {}

@@ -16,10 +16,12 @@ Returns (B, Lq, nH * C) in value's dtype; sums are taken in float32.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from .cuda.ms_deform_attn_kernel import ms_deform_attn_cuda
 
@@ -53,52 +55,133 @@ def ms_deform_attn_torch(value: torch.Tensor,
     return out.to(value.dtype).contiguous()
 
 
-class MSDeformAttnFunction(torch.autograd.Function):
-    """MSDA with a forward of ``forward`` (the CUDA kernel on the card) and
-    the backward of the JAX package's ``_msda_pallas_bwd``
+OP_NAME = "aloception_tpu_torch::ms_deform_attn"
+
+
+def _pairs(flat_shapes: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    return tuple((int(flat_shapes[i]), int(flat_shapes[i + 1]))
+                 for i in range(0, len(flat_shapes), 2))
+
+
+# The operator ``torch.ops.aloception_tpu_torch.ms_deform_attn(value,
+# spatial_shapes, sampling_locations, attention_weights)``, spatial_shapes
+# flat as [H_0, W_0, H_1, W_1, ...]. It is what ``torch.export`` records
+# and what an AOTInductor package calls at run time: its CUDA kernel is the
+# hand-written one, its CPU kernel the plain version. Its inputs keep the
+# strides they had when traced (contiguous at the model's call site), so a
+# compiled package hands the kernel the layout it takes.
+@torch.library.custom_op(OP_NAME, mutates_args=(), device_types="cpu",
+                         tags=(torch.Tag.needs_exact_strides,))
+def ms_deform_attn_op(value: torch.Tensor, spatial_shapes: List[int],
+                      sampling_locations: torch.Tensor,
+                      attention_weights: torch.Tensor) -> torch.Tensor:
+    return ms_deform_attn_torch(value, _pairs(spatial_shapes),
+                                sampling_locations, attention_weights)
+
+
+@ms_deform_attn_op.register_kernel("cuda")
+def _ms_deform_attn_cuda_kernel(value, spatial_shapes, sampling_locations,
+                                attention_weights):
+    return ms_deform_attn_cuda(value, _pairs(spatial_shapes),
+                               sampling_locations, attention_weights)
+
+
+@ms_deform_attn_op.register_fake
+def _ms_deform_attn_fake(value, spatial_shapes, sampling_locations,
+                         attention_weights):
+    B, _, nH, C = value.shape
+    return value.new_empty((B, sampling_locations.shape[1], nH * C))
+
+
+def _setup_context(ctx, inputs, output):
+    value, spatial_shapes, sampling_locations, attention_weights = inputs
+    ctx.shapes = _pairs(spatial_shapes)
+    ctx.save_for_backward(value, sampling_locations, attention_weights)
+
+
+def _backward(ctx, grad_out):
+    """The backward of the JAX package's ``_msda_pallas_bwd``
     (aloception_tpu/ops/ms_deform_attn.py:256): the gradient of the plain
     version, recomputed on the saved inputs, for value, loc and w. The JAX
     package has no backward kernel either (its Pallas backward was deleted
-    after it failed on the hardware)."""
+    after it failed on the hardware). Each pass is counted in
+    ``ms_deform_attn_cuda.backward_passes``."""
+    value, loc, w = ctx.saved_tensors
+    needs = (ctx.needs_input_grad[0], ctx.needs_input_grad[2],
+             ctx.needs_input_grad[3])
+    inputs = [t.detach().requires_grad_(need)
+              for t, need in zip((value, loc, w), needs)]
+    with torch.enable_grad():
+        out = ms_deform_attn_torch(inputs[0], ctx.shapes, inputs[1],
+                                   inputs[2])
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+    ms_deform_attn_cuda.backward_passes += 1
+    g_value, g_loc, g_w = (next(grads) if t.requires_grad else None
+                           for t in inputs)
+    return g_value, None, g_loc, g_w
 
-    @staticmethod
-    def forward(ctx, forward: Callable, value: torch.Tensor,
-                value_spatial_shapes: Sequence[Tuple[int, int]],
-                sampling_locations: torch.Tensor,
-                attention_weights: torch.Tensor) -> torch.Tensor:
-        ctx.shapes = tuple((int(h), int(w)) for h, w in value_spatial_shapes)
-        ctx.save_for_backward(value, sampling_locations, attention_weights)
-        return forward(value, ctx.shapes, sampling_locations,
-                       attention_weights)
 
-    @staticmethod
-    def backward(ctx, grad_out: torch.Tensor):
-        value, loc, w = ctx.saved_tensors
-        needs = (ctx.needs_input_grad[1], ctx.needs_input_grad[3],
-                 ctx.needs_input_grad[4])
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip((value, loc, w), needs)]
-        with torch.enable_grad():
-            out = ms_deform_attn_torch(inputs[0], ctx.shapes, inputs[1],
-                                       inputs[2])
-            wanted = [t for t in inputs if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wanted, grad_out))
-        ms_deform_attn_cuda.backward_passes += 1
-        g_value, g_loc, g_w = (next(grads) if t.requires_grad else None
-                               for t in inputs)
-        return None, g_value, None, g_loc, g_w
+ms_deform_attn_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def msda_corners(spatial_shapes: Sequence[int],
+                 sampling_locations: torch.Tensor,
+                 attention_weights: torch.Tensor):
+    """The four bilinear corners of every sampling point: a list of
+    (cx, cy, ok), each (B, Lq, nH, L, P), ok where the corner falls inside
+    its level and the point's attention weight is nonzero. The corners that
+    the kernel reads; ``msda_fmas`` and the bound's byte count take them
+    from here."""
+    loc, w = sampling_locations, attention_weights
+    shapes = _pairs(spatial_shapes)
+    wl = torch.tensor([s[1] for s in shapes], device=loc.device)[:, None]
+    hl = torch.tensor([s[0] for s in shapes], device=loc.device)[:, None]
+    x = torch.floor(loc[..., 0].float() * wl - 0.5).long()
+    y = torch.floor(loc[..., 1].float() * hl - 0.5).long()
+    corners = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            cx, cy = x + dx, y + dy
+            ok = (cx >= 0) & (cx < wl) & (cy >= 0) & (cy < hl) & (w != 0)
+            corners.append((cx, cy, ok))
+    return corners
+
+
+def msda_fmas(value_shape: Sequence[int], spatial_shapes: Sequence[int],
+              sampling_locations: torch.Tensor,
+              attention_weights: torch.Tensor) -> int:
+    """Multiply-adds of one call: one per channel of each corner of
+    ``msda_corners`` (the attention weight folded into the corner weights).
+    The count depends on the data; where the inputs carry none (fake or meta
+    tensors, as when a compiler counts a traced graph), it is the most the
+    shapes allow, four corners a point."""
+    C = value_shape[-1]
+    if is_fake(sampling_locations) or sampling_locations.is_meta:
+        return 4 * attention_weights.numel() * C
+    return C * sum(int(ok.sum()) for _, _, ok in msda_corners(
+        spatial_shapes, sampling_locations, attention_weights))
+
+
+@register_flop_formula(torch.ops.aloception_tpu_torch.ms_deform_attn,
+                       get_raw=True)
+def _ms_deform_attn_flops(value, spatial_shapes, sampling_locations,
+                          attention_weights, *args, **kwargs) -> int:
+    """Two operations per multiply-add, so that ``FlopCounterMode`` counts
+    MSDA as the bound in ``chip_smoke.py`` does."""
+    return 2 * msda_fmas(value.shape, spatial_shapes, sampling_locations,
+                         attention_weights)
 
 
 def ms_deform_attn(value: torch.Tensor,
                    value_spatial_shapes: Sequence[Tuple[int, int]],
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor) -> torch.Tensor:
-    """A CPU tensor takes the plain version (plain autograd gives it
-    gradients); any other device takes the CUDA kernel, which raises on what
-    it cannot run, through ``MSDeformAttnFunction`` where an input requires
-    grad. No fallback."""
-    if value.device.type == "cpu":
-        return ms_deform_attn_torch(value, value_spatial_shapes,
-                                    sampling_locations, attention_weights)
-    return ms_deform_attn_cuda(value, value_spatial_shapes, sampling_locations,
-                               attention_weights)
+    """The operator ``aloception_tpu_torch::ms_deform_attn``: a CPU tensor
+    takes the plain version, a CUDA tensor the CUDA kernel, which raises on
+    what it cannot run (no fallback); its gradient is the plain version's,
+    recomputed (``_backward``)."""
+    return ms_deform_attn_op(value,
+                             [int(s) for hw in value_spatial_shapes
+                              for s in hw],
+                             sampling_locations, attention_weights)

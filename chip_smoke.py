@@ -8,8 +8,9 @@
    kernel against its plain PyTorch version on the card, in float32 and
    bfloat16: at the
    encoder and decoder (level-split) calls of Deformable-DETR-R50 at 640 px
-   and batch 16 (the main path's plans) and at batch 4 (the panoptic
-   path's), at a small odd shape, with narrow
+   and batch 16 (the main path's plans), at batch 4 (the panoptic
+   path's) and at the export path's bs1 480x640 levels (Lq 6,380 and 300,
+   the package's plans), at a small odd shape, with narrow
    vectors, with locations outside the levels, NaN and far-outside points,
    and every instance of its template under a forced launch plan. At both
    bs16 bf16 sites it holds the kernel against the plain version on the
@@ -115,6 +116,22 @@
     panoptic_deformable --fast_dev_run`` (its MSDA launches, no backward
     pass, the PQ table), ``train_on_chairs --sample --max_steps 4`` and
     ``eval_on_sintel --sample --ckpt_dir`` on its checkpoint.
+17. Export (float32, TF32 off): ``export_model --model deformable`` and
+    ``--model detr --profile`` at the JAX defaults (batch 1, 480x640, 91
+    classes): ``torch.export``, the AOTInductor compile and the package's
+    sanity check, their seconds, the package's size and the peak memory;
+    each package, as the command's ``Executor`` loaded it, held against
+    the eager model on a seeded padded batch (1e-3 * max(1, max|ref|));
+    the Deformable package's 12 MSDA launches a forward and its launch
+    plans beside eager's; both latencies (p50/p99 to a synchronised end,
+    device-busy ms); 4 requests of uint8 images of other sizes through
+    ``ModelHandler`` on the same ``Executor`` (one fetch in postprocess,
+    12 launches each); the ``bf16`` profile's exported program against
+    its eager module; the RAFT (``iters`` 2) and panoptic exporters'
+    programs at the CPU tests' tiny widths; int8 weights-only
+    Deformable-DETR-R50 (every int8 weight within half a step; the logits'
+    deviation beside the JAX test's 5 % contract, with where it comes
+    from) and a min-max calibration over two COCO sample batches.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
@@ -134,6 +151,8 @@ from unittest import mock
 import torch
 
 LEVELS_640 = ((80, 80), (40, 40), (20, 20), (10, 10))
+# the exported Deformable-DETR-R50's levels at 480x640
+LEVELS_480 = ((60, 80), (30, 40), (15, 20), (8, 10))
 NH, C, P = 8, 32, 4
 # name: (level shapes, B, Lq, C, location range); the encoder and decoder
 # cases are the main path's calls, so their plans are the ones it launches
@@ -144,6 +163,9 @@ KERNEL_CASES = {
     # the panoptic Deformable path's calls at its served batch of 4
     "encoder_bs4": (LEVELS_640, 4, 8500, C, (0.0, 1.0)),
     "decoder_bs4": (LEVELS_640, 4, 300, C, (0.0, 1.0)),
+    # the export path's calls: the package at bs1, 480x640
+    "encoder_export": (LEVELS_480, 1, 6380, C, (0.0, 1.0)),
+    "decoder_export": (LEVELS_480, 1, 300, C, (0.0, 1.0)),
     "odd": (((1, 5), (2, 2), (3, 7)), 2, 37, 16, (0.0, 1.0)),
     # heads of 3 narrow vectors (8 B fp32, 4 B bf16) and a 1x1 level
     "narrow": (((9, 11), (1, 1), (4, 3), (2, 5)), 2, 37, 6, (-0.2, 1.2)),
@@ -173,6 +195,8 @@ STEP_PLANS = {
 }
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak rate
 FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores
+# the autograd node of the operator aloception_tpu_torch::ms_deform_attn
+MSDA_BACKWARD_NODE = "GeneratedBackwardFor_aloception_tpu_torch_ms_deform_attn"
 BATCH, RAW_HW, SIZE = 16, (480, 640), (640, 640)
 N_REQUESTS = 3
 MSDA_CALLS_PER_FORWARD = 12      # 6 encoder + 6 decoder layers
@@ -235,6 +259,17 @@ PANOPTIC_BF16_TOL = {"forward": 1e-1, "head": 5e-2}
 RAFT_GATE_BATCH, RAFT_GATE_HW = 2, (184, 248)
 RAFT_TRAIN_BATCH, RAFT_TRAIN_HW = 10, (368, 496)
 RAFT_TRAIN_STEPS, RAFT_OVERFIT_STEPS = 6, 12
+# export: the JAX exporter's defaults, fp32 with TF32 off, batch 1,
+# 480x640, 91 classes; packages go where builds go (git-ignored); 4 requests
+# of uint8 images of other sizes through the handler; the tiny exporters'
+# shapes; the JAX test's int8 contract (5 % of max|fp32 logits|, on a tiny
+# DETR) and the calibration over two COCO sample batches
+EXPORT_HW = (480, 640)
+EXPORT_DIR = "aloception_tpu_torch/_build/export"
+EXPORT_REQUEST_HW = ((360, 480), (427, 640), (600, 800), (256, 320))
+EXPORT_TIMED = 20
+TINY_EXPORT_HW, TINY_RAFT_ITERS = (64, 96), 2
+INT8_CONTRACT, CALIB_BATCHES, CALIB_BATCH = 0.05, 2, 2
 PANOPTIC_INFERENCE = {
     "detr_r50_panoptic": dict(threshold=0.0,
                               background_class=PANOPTIC_CLASSES,
@@ -296,39 +331,30 @@ def msda_bound(value, shapes, loc, w):
     """The least time the card could take for one call on these inputs:
     (bound_ms, "bytes" or "operations", compulsory bytes, FMAs, gathered
     bytes). Bytes: each value row (b, s, h) that a corner of nonzero weight
-    touches, read once, all of loc and w, and out, written once. FMAs: one
-    per channel of each such corner (the attention weight folded into the
-    corner weights). Gathered bytes: one corner row per such corner, what a
-    gather pulls from L2."""
+    touches, read once, all of loc and w, and out, written once. FMAs: the
+    operator's count (``msda_fmas``: one per channel of each such corner,
+    the attention weight folded into the corner weights). Gathered bytes:
+    one corner row per such corner, what a gather pulls from L2."""
+    from aloception_tpu_torch.ops.ms_deform_attn import (msda_corners,
+                                                         msda_fmas)
     B, len_v, nH, Cv = value.shape
     item = value.element_size()
-    x = loc[..., 0].float() * torch.tensor([wl for _, wl in shapes],
-                                           device=loc.device)[:, None] - 0.5
-    y = loc[..., 1].float() * torch.tensor([hl for hl, _ in shapes],
-                                           device=loc.device)[:, None] - 0.5
-    hw = torch.tensor(shapes, device=loc.device)
-    hl, wl = hw[:, 0, None], hw[:, 1, None]
+    flat = [s for hw in shapes for s in hw]
+    wl = torch.tensor([wd for _, wd in shapes], device=loc.device)[:, None]
     start = torch.tensor([0] + [h * wd for h, wd in shapes][:-1],
                          device=loc.device).cumsum(0)[:, None]
-    rows, n_corners = [], 0
-    for dy in (0, 1):
-        for dx in (0, 1):
-            cx = torch.floor(x).long() + dx
-            cy = torch.floor(y).long() + dy
-            ok = (cx >= 0) & (cx < wl) & (cy >= 0) & (cy < hl) & (w != 0)
-            s = start + cy * wl + cx                      # (B, Lq, nH, L, P)
-            b = torch.arange(B, device=loc.device).view(B, 1, 1, 1, 1)
-            h = torch.arange(nH, device=loc.device).view(1, 1, nH, 1, 1)
-            rows.append(((b * len_v + s) * nH + h)[ok])
-            n_corners += int(ok.sum())
+    b = torch.arange(B, device=loc.device).view(B, 1, 1, 1, 1)
+    h = torch.arange(nH, device=loc.device).view(1, 1, nH, 1, 1)
+    rows = [((b * len_v + start + cy * wl + cx) * nH + h)[ok]
+            for cx, cy, ok in msda_corners(flat, loc, w)]
     n_rows = int(torch.unique(torch.cat(rows)).numel())
     nbytes = (n_rows * Cv + loc.numel() + w.numel()
               + loc.shape[0] * loc.shape[1] * nH * Cv) * item
-    fmas = n_corners * Cv
+    fmas = msda_fmas(value.shape, flat, loc, w)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * fmas / FP32_FLOP_PER_S * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops), by, nbytes, fmas, n_corners * Cv * item
+    return max(t_bytes, t_ops), by, nbytes, fmas, fmas * item
 
 
 def ptxas_report(log):
@@ -1056,8 +1082,8 @@ def _check_losses(per_batch, tag):
 
 def train_gate_phase(device):
     """One Deformable-DETR-R50-refine train step, float32, TF32 off, dropout
-    0, batch 2 at 640 x 640: the MSDA kernel forward (through the autograd
-    Function) against the plain forward, same model and batch. Losses to
+    0, batch 2 at 640 x 640: the MSDA kernel forward (through the
+    operator's autograd) against the plain forward, same model and batch. Losses to
     1e-4 relative, every parameter's gradient to 1e-3 of its largest
     magnitude, the matched queries equal."""
     from aloception_tpu_torch.models.deformable_detr import (
@@ -1185,8 +1211,8 @@ def train_profile(trainer, batch, device, n_steps=2, regions=None):
               f"{r.count // n_steps:5d} calls  {r.key[:100]}")
     parts = {
         "msda forward kernel": (lambda k: "msda_forward_kernel" in k, True),
-        "msda plain backward (MSDeformAttnFunctionBackward, children "
-        "included)": (lambda k: k == "MSDeformAttnFunctionBackward", False),
+        "msda plain backward (the operator's backward node, children "
+        "included)": (lambda k: k.startswith(MSDA_BACKWARD_NODE), False),
         "grid_sample backward": (
             lambda k: k == "aten::grid_sampler_2d_backward", False),
         "hungarian kernel": (lambda k: "hungarian_kernel" in k, True),
@@ -1217,7 +1243,7 @@ def train_phase(device):
     queries, 6+6 layers, float32, dropout 0.1) trains through
     ``make_deformable_detr_trainer(...).fit`` on the synthetic sample at
     batch 8, 640 x 640: one warm-up step and TRAIN_STEPS timed ones, with 12
-    kernel launches and 12 Function backward passes a step, one Hungarian
+    kernel launches and 12 operator backward passes a step, one Hungarian
     launch a criterion call and one synchronising operation a batch; then
     its profile, and a loss that falls over OVERFIT_STEPS on one repeated
     batch."""
@@ -2432,6 +2458,391 @@ def train_commands_phase():
                 hungarian_launches=hung, val=pq, chairs_epe=epe)
 
 
+def export_command(argv):
+    """``export_model.main(argv)`` with its wall seconds, the package's
+    size and the device's peak memory; returns (the exporter, whose
+    ``executor`` holds the package loaded, the profile report, stats)."""
+    import os
+    from aloception_tpu_torch.commands import export_model
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    exporter, report = export_model.main(argv)
+    torch.cuda.synchronize()
+    artifact = exporter.artifact
+    meta = artifact.meta
+    stats = dict(seconds=time.perf_counter() - t0,
+                 export_s=meta["export_s"], compile_s=meta["compile_s"],
+                 package_mib=os.path.getsize(artifact.package_path) / 2 ** 20,
+                 device_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 sanity_max_diff=meta.get("sanity_max_diff"))
+    print(f"export {' '.join(argv)}: {stats['seconds']:.1f} s (torch.export "
+          f"{stats['export_s']:.1f} s, AOTInductor {stats['compile_s']:.1f} "
+          f"s), package {stats['package_mib']:.1f} MiB, device peak "
+          f"{stats['device_peak_gib']:.3f} GiB, sanity max|diff| on the zero "
+          f"example {stats['sanity_max_diff']}")
+    if report is not None:
+        print(f"  profile: {report}")
+    return exporter, report, stats
+
+
+def _export_gate(got, want, tag, tol=1e-3):
+    """Outputs key by key within tol * max(1, max|ref|); returns the worst
+    relative error."""
+    worst = 0.0
+    for k in want:
+        ref = max(1.0, want[k].abs().max().item())
+        err = (got[k].float() - want[k].float()).abs().max().item() / ref
+        if not err <= tol:
+            raise AssertionError(f"{tag}: {k} exported vs eager {err} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def latency_pair(executor, eager, inputs, n=EXPORT_TIMED):
+    """The package's and the eager module's latency at the same inputs:
+    p50/p99 by the host clock to a synchronised end (``Profiler``), and
+    device-busy ms a call from a device-only trace."""
+    from torch.profiler import ProfilerActivity
+    from aloception_tpu_torch.export import Profiler
+    out = {}
+    for tag, fn in (("exported", lambda: executor(*inputs)),
+                    ("eager", lambda: eager(*inputs))):
+        with torch.inference_mode():
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            prof = Profiler()
+            for _ in range(n):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                prof.record(time.perf_counter() - t0)
+            n_act, busy, window = _device_busy(
+                _trace(fn, [ProfilerActivity.CUDA], 3))
+        out[tag] = dict(prof.report(), device_busy_ms=busy / 3 / 1e3,
+                        device_activities=n_act / 3,
+                        idle_share=1 - busy / window)
+    print(f"  latency at {tuple(inputs[0].shape)}: " + "; ".join(
+        f"{k} p50 {v['p50_ms']:.3f} ms p99 {v['p99_ms']:.3f} ms, "
+        f"{v['device_busy_ms']:.3f} ms device-busy in "
+        f"{v['device_activities']:.0f} activities, idle "
+        f"{v['idle_share']:.3f}" for k, v in out.items()))
+    return out
+
+
+def export_requests(executor):
+    """``ModelHandler`` on the loaded package: EXPORT_REQUEST_HW uint8
+    images (one a request, the package's batch), each resized on the card
+    to EXPORT_HW; JSON fields checked; one device-to-host fetch in
+    postprocess. Returns (MSDA launches, latency report, detections)."""
+    import json
+    import numpy as np
+    from aloception_tpu_torch.export.production import ModelHandler
+    from aloception_tpu_torch.ops.cuda import ms_deform_attn_cuda
+
+    handler = ModelHandler(input_size=EXPORT_HW, threshold=0.0)
+    handler.initialize(executor)
+    rng = np.random.RandomState(8)
+    images = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+              for h, w in EXPORT_REQUEST_HW]
+    handler.handle([images[0]])            # warm-up
+    torch.cuda.synchronize()
+    handler.executor.profiler.times.clear()
+    ms_deform_attn_cuda.launches = 0
+    results = [handler.handle([img]) for img in images]
+    torch.cuda.synchronize()
+    launches = ms_deform_attn_cuda.launches
+    n_dets = 0
+    for res in results:
+        if len(res) != 1:
+            raise AssertionError(f"{len(res)} results for one image")
+        dets = json.loads(res[0])
+        n_dets += len(dets)
+        for d in dets:
+            box = np.asarray(d["box_xcyc_rel"])
+            if set(d) != {"label", "score", "box_xcyc_rel"} or not (
+                    isinstance(d["label"], int) and 0 <= d["label"] < 91
+                    and 0.0 <= d["score"] <= 1.0 and box.shape == (4,)
+                    and np.isfinite(box).all() and 0 <= box.min()
+                    and box.max() <= 1):
+                raise AssertionError(f"malformed detection {d}")
+    outputs = handler.inference(handler.preprocess([images[1]]))
+    fetches = syncs_of(lambda: handler.postprocess(outputs))
+    if len(fetches) != 1:
+        raise AssertionError(f"postprocess synchronised {len(fetches)} times")
+    request_syncs = syncs_of(lambda: handler.handle([images[2]]))
+    report = handler.executor.profiler.report()
+    print(f"  {len(images)} handler requests: {n_dets} detections, MSDA "
+          f"launches {launches}, package p50 {report['p50_ms']:.3f} ms; one "
+          f"fetch in postprocess, {len(request_syncs)} synchronising "
+          "operations a request (host-to-device copy of the image included)")
+    return launches, report, n_dets
+
+
+def export_phase(device):
+    """The slice's path: ``export_model`` for Deformable-DETR-R50-refine and
+    DETR-R50 at the JAX defaults (fp32, bs1, 480x640), each package, as the
+    command's ``Executor`` loaded it, held against eager on a seeded batch
+    (1e-3 * max(1, max|ref|)); the Deformable package's MSDA launches and
+    plans against eager's; 4 requests through ``ModelHandler``; the
+    latencies; the bf16 profile's exported program (a sanity check only)."""
+    import os
+    from aloception_tpu_torch.export import DeformableDetrExporter
+    from aloception_tpu_torch.models.deformable_detr import deformable_detr_r50
+    from aloception_tpu_torch.models.detr import detr_r50
+    from aloception_tpu_torch.ops.cuda import ms_deform_attn_cuda
+
+    os.makedirs(EXPORT_DIR, exist_ok=True)
+    g = torch.Generator(device=device).manual_seed(21)
+    x = torch.randn(1, *EXPORT_HW, 3, device=device, generator=g)
+    mask = torch.zeros(1, *EXPORT_HW, device=device)
+    mask[:, :, EXPORT_HW[1] * 3 // 4:] = 1.0      # a padded band
+    results = {}
+    for name, build in (("deformable", lambda: deformable_detr_r50(
+            with_box_refine=True, device=device)),
+                        ("detr", lambda: detr_r50(device=device))):
+        path = os.path.join(EXPORT_DIR, f"{name}.pt2")
+        exporter, report, stats = export_command(
+            ["--model", name, "--out", path, "--profile"])
+        executor = exporter.executor
+        eager = build()     # the same seeded weights as the command's
+        module = lambda images, m, eager=eager: {
+            k: v.float() for k, v in eager(images, m).items()
+            if k in ("pred_logits", "pred_boxes")}
+        ms_deform_attn_cuda.launches = 0
+        ms_deform_attn_cuda.plans.clear()
+        with torch.inference_mode():
+            got = executor(x, mask)
+            torch.cuda.synchronize()
+            launches = ms_deform_attn_cuda.launches
+            plans = dict(ms_deform_attn_cuda.plans)
+            ms_deform_attn_cuda.plans.clear()
+            want = module(x, mask)
+            eager_plans = dict(ms_deform_attn_cuda.plans)
+        err = _export_gate(got, want, f"{name} package")
+        expect = MSDA_CALLS_PER_FORWARD if name == "deformable" else 0
+        if launches != expect:
+            raise AssertionError(f"{name} package: {launches} MSDA launches "
+                                 f"a forward, not {expect}")
+        print(f"  {name} package against eager on a seeded padded batch: "
+              f"{err:.3e} of max(1, max|ref|); {launches} MSDA launches a "
+              "forward")
+        for key in sorted(set(plans) | set(eager_plans), key=str):
+            print(f"  MSDA plan at (B, Lq, Len_v, dtype) {key}: package "
+                  f"{plans.get(key)}, eager {eager_plans.get(key)}")
+        if plans != eager_plans:
+            print("  the package's plans differ from eager's")
+        results[name] = dict(stats, profile=report, gate=err,
+                             msda_launches_a_forward=launches,
+                             plans_equal=plans == eager_plans,
+                             latency=latency_pair(executor, module,
+                                                  (x, mask)))
+        if name == "deformable":
+            launches, served, n_dets = export_requests(executor)
+            if launches != MSDA_CALLS_PER_FORWARD * len(EXPORT_REQUEST_HW):
+                raise AssertionError(f"{launches} MSDA launches in "
+                                     f"{len(EXPORT_REQUEST_HW)} requests")
+            results[name].update(requests=len(EXPORT_REQUEST_HW),
+                                 request_msda_launches=launches,
+                                 served=served, detections=n_dets)
+        del exporter, executor, eager, module
+        torch.cuda.empty_cache()
+
+    # the bf16 profile (bf16-rounded parameters, float32 compute, as the
+    # JAX profile): its exported program against its eager module, on the
+    # card; not compiled, to keep the run inside its time limit
+    exporter = DeformableDetrExporter(deformable_detr_r50(
+        with_box_refine=True, device=device), input_shape=EXPORT_HW,
+                                      precision="bf16")
+    t0 = time.perf_counter()
+    program, module, _ = exporter.export_program()
+    export_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        got, want = program.module()(x, mask), module(x, mask)
+    results["deformable_bf16"] = dict(export_s=export_s, gate=_export_gate(
+        got, want, "bf16 profile program"))
+    print(f"  bf16 profile: torch.export {export_s:.1f} s, the program "
+          f"against eager {results['deformable_bf16']['gate']:.3e}")
+    del exporter, program, module
+    torch.cuda.empty_cache()
+    return results
+
+
+def tiny_export_phase(device):
+    """The RAFT exporter (``iters`` TINY_RAFT_ITERS) and the panoptic
+    exporter at the CPU tests' tiny widths, each exported by
+    ``torch.export`` and its program held against eager on the card; not
+    compiled, for time (the CPU tests compile tiny packages, the
+    full-width ones above run on the card)."""
+    from aloception_tpu_torch.export import PanopticExporter, RAFTExporter
+    from aloception_tpu_torch.models.detr import Detr
+    from aloception_tpu_torch.models.panoptic import DetrPanoptic
+    from aloception_tpu_torch.models.raft import RAFTBase, built
+
+    g = torch.Generator(device=device).manual_seed(22)
+    tiny = dict(hidden_dim=64, num_queries=16, nheads=4, num_encoder_layers=1,
+                num_decoder_layers=1, dim_feedforward=64,
+                stage_sizes=(1, 1, 1, 1))
+    detector = Detr(num_classes=PANOPTIC_CLASSES, return_intermediate=True,
+                    device=device, **tiny).eval()
+    raft = built(RAFTBase(hidden_dim=32, context_dim=32, corr_levels=2,
+                          corr_radius=2, device=device), torch.float32)
+    frames = [torch.rand(1, 3, *TINY_EXPORT_HW, device=device, generator=g)
+              * 2 - 1 for _ in range(2)]
+    image = torch.randn(1, *TINY_EXPORT_HW, 3, device=device, generator=g)
+    mask = torch.zeros(1, *TINY_EXPORT_HW, device=device)
+    out = {}
+    for name, exporter, inputs in (
+            ("raft_tiny", RAFTExporter(raft, input_shape=TINY_EXPORT_HW,
+                                       iters=TINY_RAFT_ITERS), frames),
+            ("panoptic_tiny", PanopticExporter(
+                detector, DetrPanoptic(detector,
+                                       num_classes=PANOPTIC_CLASSES),
+                input_shape=TINY_EXPORT_HW), (image, mask))):
+        t0 = time.perf_counter()
+        program, module, _ = exporter.export_program()
+        export_s = time.perf_counter() - t0
+        with torch.inference_mode():
+            got, want = program.module()(*inputs), module(*inputs)
+        if isinstance(want, torch.Tensor):
+            got, want = {"flow": got}, {"flow": want}
+        out[name] = dict(export_s=export_s,
+                         gate=_export_gate(got, want, name))
+    print(f"tiny exporters on the card: {out}")
+    return out
+
+
+# the int8 weights of Deformable-DETR-R50 by role, each quantized alone
+INT8_GROUPS = {
+    "encoder": lambda k: k.startswith("transformer.encoder."),
+    "decoder layers": lambda k: k.startswith("transformer.decoder.layers."),
+    "heads": lambda k: "embed" in k}
+
+
+def int8_witness(model, q, dense, ref, got, logits_with, device):
+    """Where the int8 logits' deviation comes from, as fractions of
+    max|fp32 logits|: the logit of the largest deviation (its place, its
+    float32 and int8 values) and the deviation's median and 99th
+    percentile; the deviation with each INT8_GROUPS group quantized alone;
+    and with every int8 weight moved instead by seeded uniform noise of the
+    quantizer's rounding size (+- half a step; none in the rows of zeros,
+    which int8 holds exactly), which says how far the model moves under any
+    perturbation of that size."""
+    import numpy as np
+    peak = ref.abs().max()
+    fp32 = model.state_dict()
+    int8_names = [k for k, v in q.items() if isinstance(v, dict)]
+    d = (got - ref).abs()
+    where = tuple(int(i) for i in np.unravel_index(int(d.argmax()), d.shape))
+    share = torch.quantile((d / peak).flatten().float(),
+                           torch.tensor([0.5, 0.99], device=device))
+    out = dict(max_at=dict(batch_query_class=where,
+                           fp32=ref[where].item(), int8=got[where].item(),
+                           max_abs_fp32=peak.item()),
+               p50=share[0].item(), p99=share[1].item(), alone={})
+    for group, member in INT8_GROUPS.items():
+        state = {k: dense[k] if k in q and isinstance(q[k], dict)
+                 and member(k) else v for k, v in fp32.items()}
+        out["alone"][group] = ((logits_with(state) - ref).abs().max()
+                               / peak).item()
+    # one noise draw per tensor: the heads are shared under two names
+    gen = torch.Generator(device=device).manual_seed(24)
+    noise = {}
+    for k in int8_names:
+        w = fp32[k]
+        if w.data_ptr() not in noise:
+            u = torch.rand(w.shape, generator=gen, device=device) - 0.5
+            step = q[k]["scale"] * (w.abs().amax(1, keepdim=True) > 0)
+            noise[w.data_ptr()] = w + u * step
+    noisy = {k: noise[v.data_ptr()] if k in int8_names else v
+             for k, v in fp32.items()}
+    out["uniform_half_step_noise"] = ((logits_with(noisy) - ref).abs().max()
+                                      / peak).item()
+    print(f"int8 witness: {out}")
+    return out
+
+
+def quantization_phase(device):
+    """Full-width Deformable-DETR-R50-refine, float32: ``quantize_weights_int8``
+    held to its own bound (every int8 weight within half a step, its row's
+    max|w| / 254, of the float32 one; every other tensor unchanged); the
+    int8 weights-only model's logits against the float32 model's on a seeded
+    batch, printed beside the JAX test's contract (INT8_CONTRACT of
+    max|fp32 logits|, set on a tiny DETR; the quantizer itself is held
+    equal to the JAX package's by the CPU tests); ``MinMaxCalibrator`` over
+    CALIB_BATCHES COCO sample batches on the card."""
+    import copy
+    from aloception_tpu_torch.alodataset import CocoBaseDataset
+    from aloception_tpu_torch.export import (DataBatchStreamer,
+                                             MinMaxCalibrator,
+                                             quantization_error,
+                                             quantize_weights_int8)
+    from aloception_tpu_torch.models.deformable_detr import deformable_detr_r50
+
+    model = deformable_detr_r50(with_box_refine=True, device=device)
+    q, dequant = quantize_weights_int8(model)
+    dense = dequant(q)
+    n_int8 = 0
+    for name, w in model.state_dict().items():
+        if isinstance(q[name], dict):
+            n_int8 += 1
+            half_step = q[name]["scale"] * (0.5 + 1e-5)
+            if not bool(((dense[name] - w.float()).abs() <= half_step).all()):
+                raise AssertionError(f"int8 {name}: beyond half a step")
+        elif not torch.equal(dense[name], w):
+            raise AssertionError(f"int8 changed {name}, not an int8 weight")
+    int8 = copy.deepcopy(model)
+    g = torch.Generator(device=device).manual_seed(23)
+    x = torch.randn(2, *EXPORT_HW, 3, device=device, generator=g)
+    mask = torch.zeros(2, *EXPORT_HW, device=device)
+    with torch.inference_mode():
+        ref = model(x, mask)["pred_logits"]
+    peak = ref.abs().max()
+
+    def logits_with(state):
+        int8.load_state_dict(state)
+        with torch.inference_mode():
+            return int8(x, mask)["pred_logits"]
+
+    got = logits_with(dense)
+    if got.shape != ref.shape or not bool(got.isfinite().all()):
+        raise AssertionError("int8 logits not finite or of another shape")
+    rel = ((got - ref).abs().max() / peak).item()
+    print(f"int8 weights-only: {n_int8} weights within half a step; logits "
+          f"{rel:.4f} of max|fp32 logits| (the JAX test's contract on a "
+          f"tiny DETR: < {INT8_CONTRACT}; "
+          f"{'met' if rel < INT8_CONTRACT else 'not met'} here)")
+    witness = int8_witness(model, q, dense, ref, got, logits_with, device)
+    del int8
+
+    def prepare(frames):
+        imgs = torch.stack([f.to(device).norm_resnet().resize(EXPORT_HW)
+                            .as_layout(("H", "W", "C")) for f in frames])
+        return imgs.float()
+
+    def activations(images):
+        with torch.inference_mode():
+            out = model(images, torch.zeros(images.shape[:3], device=device))
+        return {"images": images, "pred_logits": out["pred_logits"],
+                "pred_boxes": out["pred_boxes"]}
+
+    streamer = DataBatchStreamer(CocoBaseDataset(sample=True),
+                                 batch_size=CALIB_BATCH,
+                                 max_batches=CALIB_BATCHES, prepare=prepare)
+    scales = MinMaxCalibrator().calibrate(activations, streamer)
+    if set(scales) != {"images", "pred_logits", "pred_boxes"} or not all(
+            0 < s < float("inf") for s in scales.values()):
+        raise AssertionError(f"calibration scales {scales}")
+    out = dict(int8_weights=n_int8, int8_rel_err=rel,
+               int8_jax_contract_met=rel < INT8_CONTRACT,
+               int8_witness=witness,
+               weight_rel_err=quantization_error(model, q, dequant),
+               calibration_scales=scales)
+    print(f"quantization at full width: {out}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: "
@@ -2503,6 +2914,11 @@ def main():
     raft_train.update(raft_train_phase(device))
     torch.cuda.empty_cache()
     commands = train_commands_phase()
+    torch.cuda.empty_cache()
+    export = export_phase(device)
+    export["tiny"] = tiny_export_phase(device)
+    export["quantization"] = quantization_phase(device)
+    export_msda = export["deformable"]["request_msda_launches"]
     pan_train = panoptic_train["deformable_detr_r50_panoptic"]
     pan_msda = {
         "panoptic_forward":
@@ -2525,12 +2941,14 @@ def main():
         "source": "aloception_tpu_torch/csrc/ms_deform_attn.cu",
         "replaces": "aloception_tpu/ops/pallas/ms_deform_attn_kernel.py:245",
         "launches": launches + frame_launches + msda_train
-        + sum(pan_msda.values()),
+        + sum(pan_msda.values()) + export_msda,
         "launches_by_path": {"fused_preprocess": launches,
                              "frame": frame_launches,
-                             "train": msda_train, **pan_msda},
+                             "train": msda_train, **pan_msda,
+                             # the AOTInductor package's requests
+                             "export": export_msda},
         # the training path's backward: the gradient of the plain version,
-        # recomputed through the autograd Function; the panoptic paths'
+        # recomputed by the operator's registered backward; the panoptic paths'
         # detector is frozen and takes none
         "backward_passes": msda_backward + pan_train["backward_passes"]
         + commands["backward_passes"],
@@ -2592,7 +3010,9 @@ def main():
                  "eval_sintel_sample_epe": raft_epe},
         # the panoptic head runs no kernel of the port; its Deformable
         # detector runs the MSDA kernel (launches above)
-        "panoptic": panoptic}))
+        "panoptic": panoptic,
+        # AOTInductor packages: the Deformable one calls the MSDA operator
+        "export": export}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

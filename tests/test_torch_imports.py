@@ -62,6 +62,16 @@ def test_training_modules_are_checked(module):
     assert PKG / module in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "export/__init__.py", "export/base_exporter.py", "export/executor.py",
+    "export/model_exporters.py", "export/quantization.py",
+    "export/production/__init__.py", "export/production/model_handler.py",
+    "commands/export_model.py"])
+def test_export_modules_are_checked(module):
+    """The export slice's modules are among the sources checked below."""
+    assert PKG / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PKG)))
 def test_no_jax_import(path):
     roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))

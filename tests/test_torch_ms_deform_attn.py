@@ -17,8 +17,7 @@ import torch
 from aloception_tpu_torch.ops.cuda import ms_deform_attn_cuda
 from aloception_tpu_torch.ops.cuda.ms_deform_attn_kernel import (LaunchPlan,
                                                                  launch_plan)
-from aloception_tpu_torch.ops.ms_deform_attn import (MSDeformAttnFunction,
-                                                     ms_deform_attn,
+from aloception_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
                                                      ms_deform_attn_torch)
 
 # (level shapes, Lq, nH, C, P, location range)
@@ -110,8 +109,9 @@ def test_cuda_wrapper_rejects(bad):
                              else a for a in make_inputs("c16"))
     err = ValueError
     if bad == "grad":
-        # an input that requires grad goes through MSDeformAttnFunction, whose
-        # forward is the kernel: a CPU tensor is refused there all the same
+        # the launcher has no gradient of its own (the operator's autograd
+        # wraps it): an input that requires grad is refused on the CPU all
+        # the same
         value.requires_grad_(True)
     elif bad == "dtype":
         value = value.double()
@@ -256,10 +256,11 @@ def test_plain_grads_match_jax(case, jax_msda):
 @pytest.mark.parametrize("needs", [(True, True, True), (True, False, False),
                                    (False, True, True)])
 def test_function_recompute_backward_on_cpu(needs):
-    """``MSDeformAttnFunction`` driven on the CPU with the plain forward
-    injected where the card path has the kernel: its recompute backward
-    gives plain autograd's gradients exactly (the same computation), None
-    for inputs that need none, and counts one backward pass."""
+    """The operator ``aloception_tpu_torch::ms_deform_attn`` on the CPU,
+    whose kernel there is the plain forward where the card has the CUDA
+    kernel: its registered recompute backward gives plain autograd's
+    gradients exactly (the same computation), None for inputs that need
+    none, and counts one backward pass."""
     value, shapes, loc, w = make_inputs("c16")
     cotangent = np.random.RandomState(3).randn(
         *loc.shape[:2], value.shape[2] * value.shape[3]).astype(np.float32)
@@ -267,8 +268,8 @@ def test_function_recompute_backward_on_cpu(needs):
     inputs = [torch.from_numpy(a).requires_grad_(n)
               for a, n in zip((value, loc, w), needs)]
     before = ms_deform_attn_cuda.backward_passes
-    out = MSDeformAttnFunction.apply(ms_deform_attn_torch, inputs[0], shapes,
-                                     inputs[1], inputs[2])
+    out = torch.ops.aloception_tpu_torch.ms_deform_attn(
+        inputs[0], [s for hw in shapes for s in hw], inputs[1], inputs[2])
     assert torch.equal(out, ms_deform_attn_torch(*(
         t.detach() for t in inputs[:1]), shapes, inputs[1].detach(),
         inputs[2].detach()))
@@ -444,9 +445,9 @@ def test_build_failure_raises(fault, tmp_path, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["full_heads", "oob"])
 def test_function_on_card(case, cuda):
-    """Inputs that require grad on the card go through the Function: one
-    kernel launch forward, one backward pass, the plain version's
-    gradients."""
+    """Inputs that require grad on the card go through the operator's
+    autograd: one kernel launch forward, one backward pass, the plain
+    version's gradients."""
     value, shapes, loc, w = make_inputs(case)
     cotangent = np.random.RandomState(5).randn(
         *loc.shape[:2], value.shape[2] * value.shape[3]).astype(np.float32)
