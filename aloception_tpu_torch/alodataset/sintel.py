@@ -5,8 +5,8 @@
 ``sequence_size=2``), made from the same numpy seeds: 96x128 noise frames,
 the second shifted by one pixel from the first, which carries a
 ``flow_forward`` ``Flow`` of ones and an all-zero occlusion ``Mask``.
-Sintel on disk needs ``Frame(path)`` and ``io/`` and waits in ROADMAP
-A9/A10.
+Sintel on disk needs ``Frame(path)`` (an image decoder) and waits in ROADMAP
+A10/A14.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ class SintelFlowDataset:
     def __init__(self, sample: bool = False):
         if not sample:
             raise NotImplementedError(
-                "Sintel on disk is not ported yet (ROADMAP A9/A10); pass "
+                "Sintel on disk is not ported yet (ROADMAP A10/A14); pass "
                 "sample=True")
         self.items = list(range(6))
 

@@ -8,8 +8,9 @@ A plain Python container, not a ``torch.Tensor`` subclass, holding
 - *properties*   -- metadata (normalization, box format, ...)
 - *children*     -- labels that transform together with the parent
 
-Geometric ops (hflip/vflip/resize/crop/pad/spatial_shift) return new objects
-and recurse into the children. ``.to()``, ``.cpu()`` and ``clone()`` recurse
+Geometric ops (hflip/vflip/resize/rotate/crop/pad/spatial_shift) return new
+objects and recurse into the children; a child that cannot follow an op
+(its ``_op`` raises ``NotImplementedError``) is carried over unchanged. ``.to()``, ``.cpu()`` and ``clone()`` recurse
 too. Payloads stay on their device: nothing here copies to the host except
 ``as_numpy``.
 """
@@ -412,6 +413,14 @@ class AugmentedArray:
             lambda c: _child_op(c, "_resize", size01, **kwargs))
         return resized
 
+    def rotate(self, angle: float, center=None, **kwargs):
+        """Rotate by ``angle`` degrees counter-clockwise around ``center``
+        (absolute (x, y); default the frame's centre)."""
+        rotated = self._rotate(angle, center, **kwargs)
+        rotated.recursive_apply_on_children(
+            lambda c: _child_op(c, "_rotate", angle, center, **kwargs))
+        return rotated
+
     def crop(self, H_crop: Tuple[float, float], W_crop: Tuple[float, float],
              **kwargs):
         """Relative crop in [0, 1] on both axes."""
@@ -464,6 +473,8 @@ class AugmentedArray:
     def _hflip(self, **kwargs): raise NotImplementedError(type(self).__name__)
     def _vflip(self, **kwargs): raise NotImplementedError(type(self).__name__)
     def _resize(self, size01, **kwargs):
+        raise NotImplementedError(type(self).__name__)
+    def _rotate(self, angle, center=None, **kwargs):
         raise NotImplementedError(type(self).__name__)
     def _crop(self, H_crop, W_crop, **kwargs):
         raise NotImplementedError(type(self).__name__)

@@ -163,6 +163,9 @@ class BoundingBoxes2D(AugmentedArray):
         abs_size = tuple(s * fs for s, fs in zip(size01, boxes.frame_size))
         return boxes.abs_pos(abs_size)
 
+    def _rotate(self, angle, center=None, **kwargs):
+        raise NotImplementedError("BoundingBoxes2D cannot be exactly rotated")
+
     def _crop(self, H_crop, W_crop, **kwargs):
         """Crop, clamp and drop empty boxes (a data-dependent shape: syncs
         with the host)."""

@@ -1,12 +1,15 @@
-"""Flow: optical flow maps (counterpart of ``aloception_tpu/aloscene/
-flow.py``, without loading from files and views; ``SceneFlow`` waits for
-depth and 3D points, ROADMAP A9)."""
+"""Flow and SceneFlow maps (counterpart of ``aloception_tpu/aloscene/
+flow.py``, without the view; ``utils/flow_utils.py::flow_to_color`` holds
+its colours)."""
 
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from .augmented import const
+from .camera_calib import per_item
 from .mask import Mask
 from .spatial import SpatialAugmentedArray
 
@@ -20,9 +23,9 @@ class Flow(SpatialAugmentedArray):
     def __init__(self, x, occlusion: Optional[Mask] = None,
                  names=("C", "H", "W"), **kwargs):
         if isinstance(x, str):
-            raise NotImplementedError(
-                "Flow(path): loading flow files is not ported yet (ROADMAP "
-                "A9); pass a tensor")
+            from .io.flow import load_flow
+            x = load_flow(x)
+            names = ("C", "H", "W")
         super().__init__(x, names=names, **kwargs)
         self.add_child("occlusion", occlusion, align_dim=["B", "T"],
                        mergeable=True)
@@ -50,3 +53,42 @@ class Flow(SpatialAugmentedArray):
 
     def _vflip(self, **kwargs):
         return self._scale_components(super()._vflip(**kwargs), 1.0, -1.0)
+
+
+class SceneFlow(SpatialAugmentedArray):
+    """3-channel 3D scene flow (C, H, W), with an optional occlusion Mask."""
+
+    def __init__(self, x, occlusion: Optional[Mask] = None,
+                 names=("C", "H", "W"), **kwargs):
+        super().__init__(x, names=names, **kwargs)
+        self.add_child("occlusion", occlusion, align_dim=["B", "T"],
+                       mergeable=True)
+
+    def append_occlusion(self, occlusion: Mask, name: Optional[str] = None):
+        self._append_child("occlusion", occlusion, name)
+
+    @staticmethod
+    def from_optical_flow(flow: Flow, depth1, depth2, intrinsic):
+        """Lift a (2, H, W) optical flow to scene flow with the planar
+        depths of both frames: P2(x + flow, Z2) - P1(x, Z1), on the flow's
+        device. Uses the pinhole part of the intrinsic's first matrix (the
+        JAX package reshapes the whole matrix to 3x3 and so fails on a
+        CameraIntrinsic)."""
+        f = flow.array
+        if f.shape[0] != 2:
+            raise ValueError(f"flow must be (2, H, W), got {tuple(f.shape)}")
+        H, W = f.shape[1:]
+        pts1 = depth1.as_points3d(intrinsic).array.reshape(H, W, 3)
+        xs = torch.arange(W, dtype=torch.float32, device=f.device)[None, :]
+        ys = torch.arange(H, dtype=torch.float32, device=f.device)[:, None]
+        z2 = depth2.array.reshape(H, W)
+        K = per_item(intrinsic, ())
+        fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+        pts2 = torch.stack([(xs + f[0] - cx) / fx * z2,
+                            (ys + f[1] - cy) / fy * z2, z2], -1)
+        out = SceneFlow((pts2 - pts1).permute(2, 0, 1).float(),
+                        names=("C", "H", "W"))
+        occ = flow.get_child("occlusion")
+        if occ is not None and not isinstance(occ, dict):
+            out.append_occlusion(occ.clone())
+        return out

@@ -65,6 +65,7 @@ class Labels(AugmentedArray):
     def _hflip(self, **kw): return self.clone()
     def _vflip(self, **kw): return self.clone()
     def _resize(self, size01, **kw): return self.clone()
+    def _rotate(self, angle, center=None, **kw): return self.clone()
     def _crop(self, H_crop, W_crop, **kw): return self.clone()
     def _pad(self, oy, ox, **kw): return self.clone()
     def _spatial_shift(self, sy, sx, **kw): return self.clone()

@@ -1,6 +1,5 @@
 """Spatial augmented arrays: base for every (..., H, W)-structured type
-(counterpart of ``aloception_tpu/aloscene/spatial.py``, without rotation and
-rendering).
+(counterpart of ``aloception_tpu/aloscene/spatial.py``, without rendering).
 
 Camera-calibration child slots, stereo properties, H/W helpers, temporal/batch
 dim insertion, ``batch_list`` (pad to the batch's largest frame or a fixed
@@ -11,8 +10,10 @@ the frames' device and builds the mask there.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -74,6 +75,21 @@ class SpatialAugmentedArray(AugmentedArray):
     def relative_to_absolute(self, x: float, dim: str) -> int:
         size = self.H if dim.lower() == "h" else self.W
         return int(round(x * size))
+
+    def _item_dims(self):
+        """(the sizes of the leading dims, those other than C, H and W; the
+        shape that broadcasts a per-item value over the payload: those
+        sizes in place, 1 elsewhere)."""
+        lead = tuple(s for s, n in zip(self.shape, self._names)
+                     if n not in ("C", "H", "W"))
+        view = [1 if n in ("C", "H", "W") else s
+                for s, n in zip(self.shape, self._names)]
+        return lead, view
+
+    def _per_item(self, values: torch.Tensor) -> torch.Tensor:
+        """A per-item value (of the leading dims' shape, or a scalar)
+        shaped to broadcast over the payload."""
+        return values.reshape(self._item_dims()[1]) if values.ndim else values
 
     # ------------------------------------------------------------------
     # temporal/batch dim insertion
@@ -211,6 +227,25 @@ class SpatialAugmentedArray(AugmentedArray):
         inv = [perm.index(i) for i in range(self.ndim)]
         return self._with_array(out.permute(inv).to(self.dtype))
 
+    def _rotate(self, angle, center=None, fill: float = 0.0, **kwargs):
+        """Rotate the payload by ``angle`` degrees counter-clockwise around
+        ``center`` (absolute (x, y); default (W / 2, H / 2)), same shape:
+        the JAX package's ``cv2.warpAffine`` (bilinear, constant border
+        ``fill``) computed in float32 on the payload's device and cast back
+        to its dtype with truncation, as numpy's ``astype``. Values are
+        moved, not changed: flow and disparity vectors are not rotated."""
+        H, W = self.H, self.W
+        if center is None:
+            center = (W / 2, H / 2)
+        h_idx, w_idx = self.dim_idx("H"), self.dim_idx("W")
+        perm = [i for i in range(self.ndim) if i not in (h_idx, w_idx)] \
+            + [h_idx, w_idx]
+        a = self.array.permute(perm).reshape(-1, H, W).float()
+        out = warp_affine_linear(a, rotation_matrix(center, angle), fill)
+        out = out.reshape([self.shape[i] for i in perm])
+        inv = [perm.index(i) for i in range(self.ndim)]
+        return self._with_array(out.permute(inv).to(self.dtype))
+
     def _crop(self, H_crop, W_crop, **kwargs):
         hmin = self.relative_to_absolute(H_crop[0], "h")
         hmax = self.relative_to_absolute(H_crop[1], "h")
@@ -290,6 +325,95 @@ class SpatialAugmentedArray(AugmentedArray):
         """The payload permuted to the given named layout (e.g.
         ("B","H","W","C")), as a view."""
         return self.array.permute([self.dim_idx(n) for n in names])
+
+
+def rotation_matrix(center, angle: float) -> List[float]:
+    """The 2x3 affine map of ``cv2.getRotationMatrix2D(center, angle, 1)``
+    (row-major, float64 on the host)."""
+    a = math.radians(angle)
+    alpha, beta = math.cos(a), math.sin(a)
+    cx, cy = float(center[0]), float(center[1])
+    return [alpha, beta, (1 - alpha) * cx - beta * cy,
+            -beta, alpha, beta * cx + (1 - alpha) * cy]
+
+
+def warp_affine_linear(src: torch.Tensor, m: List[float], fill: float = 0.0
+                       ) -> torch.Tensor:
+    """``cv2.warpAffine(src, m, (W, H), INTER_LINEAR, BORDER_CONSTANT)``
+    of float32 planes (N, H, W) as OpenCV 5.0 computes it (the JAX package
+    calls it with the planes as channels), on their device. The map is
+    inverted in float64; taps outside the source take ``fill``.
+
+    - 1, 3 or 4 channels: source coordinates ``x * m0 + (y * m1 + m2)`` in
+      float32 (the last step fused), and two fused lerps along x and one
+      along y. OpenCV computes its last W mod 16 columns apart, within one
+      float32 ulp of these coordinates.
+    - Other channel counts: OpenCV's fixed-point map, coordinates rounded to
+      1/32 of a pixel, and the four taps weighted by products of 1-D
+      weights in float32.
+
+    Fused steps are computed in float64 and rounded once."""
+    D = m[0] * m[4] - m[1] * m[3]
+    D = 1.0 / D if D != 0 else 0.0
+    i0, i1, i3, i4 = m[4] * D, -m[1] * D, -m[3] * D, m[0] * D
+    inv = [i0, i1, -i0 * m[2] - i1 * m[5], i3, i4, -i3 * m[2] - i4 * m[5]]
+    N, H, W = src.shape
+    dev = src.device
+    float_map = N in (1, 3, 4)
+    x0, y0, ax, ay = (_float_map if float_map else _fixed_map)(inv, H, W, dev)
+
+    flat = src.reshape(N, H * W)
+    fill_t = torch.full((), fill, dtype=src.dtype, device=dev)
+
+    def tap(yy, xx):
+        inside = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
+        idx = (yy.clamp(0, H - 1) * W + xx.clamp(0, W - 1)).reshape(-1)
+        return torch.where(inside, flat[:, idx].reshape(N, H, W), fill_t)
+
+    p00, p01 = tap(y0, x0), tap(y0, x0 + 1)
+    p10, p11 = tap(y0 + 1, x0), tap(y0 + 1, x0 + 1)
+    if float_map:
+        f0 = _fma(ax, p01 - p00, p00)
+        f1 = _fma(ax, p11 - p10, p10)
+        return _fma(ay, f1 - f0, f0)
+    out = p00 * ((1 - ay) * (1 - ax)) + p01 * ((1 - ay) * ax) \
+        + p10 * (ay * (1 - ax)) + p11 * (ay * ax)
+    outside = (x0 >= W) | (x0 + 1 < 0) | (y0 >= H) | (y0 + 1 < 0)
+    return torch.where(outside, fill_t, out)
+
+
+def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to float32 (``b`` a tensor or a float32
+    value as a Python float)."""
+    b = b.double() if isinstance(b, torch.Tensor) else b
+    return (a.double() * b + c.double()).float()
+
+
+def _float_map(inv, H, W, dev):
+    """(x0, y0, ax, ay): floor and fraction of the float32 source
+    coordinates of OpenCV 5's vectorised warpAffine."""
+    inv = np.asarray(inv, np.float32).tolist()
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+    sx = _fma(xs, inv[0], ys * inv[1] + inv[2])
+    sy = _fma(xs, inv[3], ys * inv[4] + inv[5])
+    x0, y0 = sx.floor(), sy.floor()
+    return x0.long(), y0.long(), sx - x0, sy - y0
+
+
+def _fixed_map(inv, H, W, dev):
+    """(x0, y0, ax, ay) of OpenCV's fixed-point warpAffine: coordinates in
+    1/1024 of a pixel (rounded half to even from float64), rounded to 1/32
+    of a pixel."""
+    xs = torch.arange(W, dtype=torch.float64, device=dev)
+    ys = torch.arange(H, dtype=torch.float64, device=dev)
+    adelta = torch.round(inv[0] * xs * 1024).long()
+    bdelta = torch.round(inv[3] * xs * 1024).long()
+    X0 = torch.round((inv[1] * ys + inv[2]) * 1024).long() + 16
+    Y0 = torch.round((inv[4] * ys + inv[5]) * 1024).long() + 16
+    X = (X0[:, None] + adelta[None, :]) >> 5
+    Y = (Y0[:, None] + bdelta[None, :]) >> 5
+    return X >> 5, Y >> 5, (X & 31).float() / 32, (Y & 31).float() / 32
 
 
 def _mask_shape(frame: SpatialAugmentedArray) -> Tuple[int, ...]:

@@ -1,7 +1,7 @@
 """Training callbacks (counterpart of ``aloception_tpu/train/callbacks.py``):
 ``MetricsCallback``, and the AP, PQ and EPE callbacks over the port's own
 ``metrics``. ``ObjectDetectorCallback``, which needs the renderer, waits in
-ROADMAP A9.
+ROADMAP A14.
 """
 
 from __future__ import annotations

@@ -132,6 +132,21 @@
     Deformable-DETR-R50 (every int8 weight within half a step; the logits'
     deviation beside the JAX test's 5 % contract, with where it comes
     from) and a min-max calibration over two COCO sample batches.
+18. aloscene's 3-D geometry (``geometry_phase``; torch ops, no kernel of
+    the port, both kernel counts read around it and 0): the five rotated /
+    3D IoU functions on 4,096 seeded pairs and the hard cases, the card
+    against the CPU (1e-5); two KITTI-sized frames (375x1242 uint8, the
+    published P2 intrinsic, 30 labelled 3D boxes, a dense planar depth and
+    its disparity at baseline 0.54 m, 100 points, 20 oriented boxes)
+    through resize -> crop -> hflip -> pad -> rotate 5 degrees ->
+    ``batch_list``, back-projection, depth -> disparity -> depth and the
+    enclosing 2D boxes, every payload against the CPU run (1e-4 of
+    max(1, max|ref|)), the chain's warm ms and syncs; ``ApMetrics3D`` over
+    100 frames of 100 predictions x 30 targets (maps equal to the CPU's,
+    IoUs near a threshold printed, ms per ``add_sample``); pairwise 3D IoU
+    at 500 x 200 (ms a call by CUDA events, device-busy ms and activities
+    from a trace, the CPU's ms); ``DepthMetrics`` over 4 375x1242 pairs
+    (1e-9 relative); the golden ``.flo`` and ``.pfm`` read exactly.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
@@ -2843,6 +2858,402 @@ def quantization_phase(device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 3-D geometry: aloscene's types, the rotated / 3D IoU, the 3D AP and the
+# depth metrics on the card, held against the same code on the CPU
+
+IOU_PAIRS = 4096
+IOU_FUNCS = ("cal_iou", "cal_giou", "cal_iou_3d", "cal_giou_3d",
+             "cal_diou_3d")
+KITTI_HW = (375, 1242)
+# KITTI's published P2 of the object benchmark: fx = fy, principal point
+KITTI_P2 = dict(focal_length=721.5377, principal_point=(172.854, 609.5593))
+KITTI_BASELINE = 0.54
+SCENE_N = dict(boxes3d=30, points2d=100, oriented=20)
+# per frame: resize to, crop (H, W), pad (H, W) offsets, then rotate 5 deg
+SCENE_CHAIN = (((300, 994), ((0.05, 0.95), (0.1, 0.9)),
+                ((0.0, 0.1), (0.05, 0.05))),
+               ((320, 1060), ((0.0, 0.9), (0.05, 0.85)),
+                ((0.1, 0.0), (0.0, 0.1))))
+SCENE_ANGLE = 5.0
+AP3D_SAMPLES, AP3D_PRED, AP3D_GT, AP3D_CLASSES = 100, 100, 30, 3
+PAIRWISE = (500, 200)
+DEPTH_PAIRS = 4
+
+
+def iou_boxes(n, dims, g):
+    """n boxes of ``dims`` centre coordinates in [-1, 1], sizes in [0.2, 2],
+    headings in [-pi, pi] (overlapping centres), on the CPU."""
+    return torch.cat([2 * torch.rand(n, dims, generator=g) - 1,
+                      0.2 + 1.8 * torch.rand(n, dims, generator=g),
+                      (2 * torch.rand(n, 1, generator=g) - 1) * torch.pi], 1)
+
+
+def iou_hard_cases():
+    """(2D pairs, 3D pairs): identical, nested, disjoint, 45 degree cross,
+    shared edge, zero width; 3D also a vertical half-overlap and touch."""
+    b2 = torch.tensor([
+        [[0, 0, 1, 1, 0], [0, 0, 1, 1, 0]],
+        [[0, 0, 2, 2, 0.3], [0, 0, 1, 1, 0.3]],
+        [[0, 0, 1, 1, 0], [5, 5, 1, 1, 0]],
+        [[0, 0, 1, 1, 0], [0, 0, 1, 1, torch.pi / 4]],
+        [[0, 0, 1, 1, 0], [1, 0, 1, 1, 0]],
+        [[0, 0, 0, 1, 0], [0, 0, 1, 1, 0]]])
+    b3 = torch.zeros(len(b2) + 2, 2, 7)
+    b3[:len(b2), :, [0, 1, 3, 4, 6]] = b2
+    b3[:len(b2), :, 5] = 1.0
+    b3[-2] = torch.tensor([[0, 0, 0, 2, 2, 2, 0.3], [0, 0, 1, 2, 2, 2, 0.3]])
+    b3[-1] = torch.tensor([[0, 0, 0, 1, 1, 1, 0.0], [0, 0, 1, 1, 1, 1, 0.0]])
+    return b2, b3
+
+
+def iou_parity_step(device):
+    """The five IoU functions on 4,096 seeded pairs and the hard cases, on
+    the card and on the CPU. Gate: max|card - CPU| <= 1e-5 on the random
+    pairs; the hard cases' differences and the pairs above 1e-6 printed."""
+    from aloception_tpu_torch.ops import rotated_iou as riou
+    g = torch.Generator().manual_seed(31)
+    hard = dict(zip((2, 3), iou_hard_cases()))
+    out = {}
+    for name in IOU_FUNCS:
+        dims = 3 if name.endswith("3d") else 2
+        rand = iou_boxes(2 * IOU_PAIRS, dims, g).reshape(IOU_PAIRS, 2, -1)
+        fn = getattr(riou, name)
+        res = {}
+        for tag, b in (("random", rand), ("hard", hard[dims])):
+            cpu = fn(b[:, 0], b[:, 1])
+            card = fn(b[:, 0].to(device), b[:, 1].to(device))
+            cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+            card = card if isinstance(card, tuple) else (card,)
+            diff = torch.stack([(c.cpu() - r).abs() for c, r in
+                                zip(card, cpu)]).amax(0)
+            if not torch.isfinite(diff).all():
+                raise AssertionError(f"{name} {tag}: non-finite difference")
+            res[tag] = diff
+        err = float(res["random"].max())
+        out[name] = {"max_abs_err": err,
+                     "pairs_above_1e-6": int((res["random"] > 1e-6).sum()),
+                     "hard_abs_err": [float(d) for d in res["hard"]]}
+        print(f"geometry iou {name}: {IOU_PAIRS} pairs card vs CPU max|diff| "
+              f"{err:.3e} (gate 1e-5), pairs above 1e-6 "
+              f"{out[name]['pairs_above_1e-6']}; hard cases "
+              f"{['%.1e' % d for d in out[name]['hard_abs_err']]}")
+        if err > 1e-5:
+            raise AssertionError(f"{name}: card vs CPU {err} > 1e-5")
+    return out
+
+
+def kitti_scene(seed):
+    """A KITTI-sized frame on the CPU: uint8 375x1242 pixels, the P2
+    intrinsic, 30 labelled 3D boxes, a dense planar depth (a ground plane
+    with noise, 2-80 m, its own intrinsic) and its disparity at the stereo
+    baseline, 100 absolute 2D points, 20 oriented boxes."""
+    import aloception_tpu_torch.aloscene as sc
+    g = torch.Generator().manual_seed(seed)
+    H, W = KITTI_HW
+    f = sc.Frame(torch.randint(0, 256, (3, H, W), generator=g,
+                               dtype=torch.uint8))
+    K = sc.CameraIntrinsic(**KITTI_P2)
+    f.append_cam_intrinsic(K)
+    n = SCENE_N["boxes3d"]
+    u = torch.rand(n, 7, generator=g)
+    boxes = torch.stack([30 * u[:, 0] - 15, 1 + 1.0 * u[:, 1],
+                         5 + 65 * u[:, 2], 1.5 + 0.5 * u[:, 3],
+                         1.4 + 0.4 * u[:, 4], 3.5 + 1.3 * u[:, 5],
+                         (2 * u[:, 6] - 1) * torch.pi], 1)
+    f.append_boxes3d(sc.BoundingBoxes3D(boxes, labels=sc.Labels(
+        torch.randint(0, 3, (n,), generator=g).float())))
+    rows = torch.arange(H, dtype=torch.float32)[:, None] - K.array[1, 2]
+    plane = (KITTI_P2["focal_length"] * 1.65 / rows.clamp(min=1e-3))
+    depth = (plane.clamp(2.0, 80.0) * (1 + 0.05 * torch.randn(
+        H, W, generator=g))).clamp(2.0, 80.0)[None].expand(1, H, W)
+    d = sc.Depth(depth.contiguous(), baseline=KITTI_BASELINE)
+    d.append_cam_intrinsic(K.clone())
+    f.append_depth(d)
+    f.append_disparity(d.as_disp(camera_side="left"))
+    m = SCENE_N["points2d"]
+    pts = torch.rand(m, 2, generator=g) * torch.tensor([W, H])
+    f.append_points2d(sc.Points2D(pts, "xy", True, frame_size=(H, W),
+                                  labels=sc.Labels(torch.arange(m).float())))
+    k = SCENE_N["oriented"]
+    u = torch.rand(k, 5, generator=g)
+    ob = torch.stack([W * u[:, 0], H * u[:, 1], 20 + 80 * u[:, 2],
+                      10 + 40 * u[:, 3], (2 * u[:, 4] - 1) * torch.pi], 1)
+    f.add_child("oriented_boxes2d", sc.OrientedBoxes2D(
+        ob, absolute=True, frame_size=(H, W),
+        labels=sc.Labels(torch.arange(k).float())), mergeable=False)
+    return f
+
+
+def scene_chain(frames):
+    """Each frame: norm01 -> resize -> crop -> hflip -> pad -> rotate 5
+    degrees (its points, boxes and intrinsic are carried over, as in the
+    JAX package); then batch_list, the depth back-projected with each
+    item's intrinsic, depth -> disparity -> depth, and each item's
+    enclosing 2D boxes of its 3D boxes."""
+    import aloception_tpu_torch.aloscene as sc
+    done = []
+    for f, (size, crop, pad) in zip(frames, SCENE_CHAIN):
+        f = f.norm01().resize(size).crop(*crop).hflip().pad(*pad)
+        done.append(f.rotate(SCENE_ANGLE))
+    batch = sc.batch_list(done)
+    points = batch.depth.as_points3d()
+    disp = batch.depth.as_disp(baseline=KITTI_BASELINE)
+    depth = disp.as_depth()
+    boxes2d = [batch.boxes3d[i].get_enclosing_box_2d(batch.cam_intrinsic[i],
+                                                     batch.HW)
+               for i in range(len(frames))]
+    return {"batch": batch, "points3d": points, "disparity": disp,
+            "depth": depth, "enclosing_boxes2d": boxes2d}
+
+
+def tree_err(got, want, path="", errs=None):
+    """{path: max|got - want| / max(1, max|want|)} over an object tree of
+    the port's types, lists and dicts; names, properties, shapes and the
+    places of infinities must be equal."""
+    from aloception_tpu_torch.aloscene import AugmentedArray
+    errs = {} if errs is None else errs
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{path}: keys {set(got)} != {set(want)}")
+        for k in want:
+            tree_err(got[k], want[k], f"{path}/{k}", errs)
+        return errs
+    if isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"{path}: {len(got)} != {len(want)} items")
+        for i, (a, b) in enumerate(zip(got, want)):
+            tree_err(a, b, f"{path}[{i}]", errs)
+        return errs
+    if want is None:
+        if got is not None:
+            raise AssertionError(f"{path}: {got} where None")
+        return errs
+    if not isinstance(want, AugmentedArray):
+        raise AssertionError(f"{path}: unexpected {type(want)}")
+    if type(got) is not type(want) or got.names != want.names \
+            or got._properties != want._properties:
+        raise AssertionError(f"{path}: type, names or properties differ")
+    if got.shape != want.shape:
+        raise AssertionError(f"{path}: shape {got.shape} vs {want.shape}")
+    a, b = got.array.cpu().double(), want.array.double()
+    finite = torch.isfinite(b)
+    if not torch.equal(torch.isfinite(a), finite) or not torch.equal(
+            a[~finite].nan_to_num(), b[~finite].nan_to_num()):
+        raise AssertionError(f"{path}: non-finite values differ")
+    scale = max(1.0, float(b[finite].abs().max()) if finite.any() else 1.0)
+    errs[path or "/"] = float((a[finite] - b[finite]).abs().max()) / scale \
+        if finite.any() else 0.0
+    for k in want._children:
+        tree_err(got._children[k], want._children[k],
+                 f"{path}.{k}", errs)
+    return errs
+
+
+def kitti_scene_step(device):
+    """The scene chain on the card against the CPU. Gate: every payload
+    of the result trees within 1e-4 * max(1, max|ref|). Then the chain
+    timed on the card (host clock to a synchronised end) and its
+    synchronising operations counted."""
+    frames = [kitti_scene(seed) for seed in (41, 42)]
+    want = scene_chain(frames)
+    on_card = [f.to(device) for f in frames]
+    torch.cuda.synchronize()
+    got = scene_chain(on_card)
+    if got["batch"].device != device or got["points3d"].device != device:
+        raise AssertionError("the scene chain left the card")
+    errs = tree_err(got, want)
+    worst = max(errs, key=errs.get)
+    n_pts = [len(p) for p in want["batch"].points2d]
+    print(f"geometry scene: 2 KITTI frames {KITTI_HW} uint8 -> {SCENE_CHAIN} "
+          f"-> rotate {SCENE_ANGLE} -> batch_list {want['batch'].shape}; "
+          f"{len(errs)} payloads card vs CPU, worst {worst} "
+          f"{errs[worst]:.3e} of max(1, max|ref|) (gate 1e-4); points kept "
+          f"{n_pts} of {SCENE_N['points2d']}")
+    if errs[worst] > 1e-4:
+        raise AssertionError(f"scene {worst}: {errs[worst]} > 1e-4")
+    t0 = time.perf_counter()
+    scene_chain(on_card)
+    torch.cuda.synchronize()
+    chain_ms = 1e3 * (time.perf_counter() - t0)
+    syncs = syncs_of(lambda: scene_chain(on_card))
+    print(f"geometry scene chain on the card: {chain_ms:.3f} ms (host clock, "
+          f"warm), {len(syncs)} synchronising operations")
+    return {"max_rel_err": errs[worst], "worst": worst,
+            "payloads": len(errs), "points_kept": n_pts,
+            "chain_ms": chain_ms, "syncs": len(syncs)}
+
+
+def ap3d_samples(device):
+    """100 seeded frames: 30 targets of 3 classes, 100 scored predictions
+    (jittered copies of the targets, some of another class, and false
+    positives), as BoundingBoxes3D with Labels on ``device``."""
+    import aloception_tpu_torch.aloscene as sc
+    g = torch.Generator().manual_seed(51)
+    n_t, n_p = AP3D_GT, AP3D_PRED
+    samples = []
+    for _ in range(AP3D_SAMPLES):
+        u = torch.rand(n_t, 7, generator=g)
+        gt = torch.stack([40 * u[:, 0] - 20, 1 + u[:, 1], 5 + 55 * u[:, 2],
+                          1.5 + 0.5 * u[:, 3], 1.4 + 0.4 * u[:, 4],
+                          3.5 + 1.3 * u[:, 5], (2 * u[:, 6] - 1) * torch.pi],
+                         1)
+        gt_cls = torch.randint(0, AP3D_CLASSES, (n_t,), generator=g)
+        src = torch.randint(0, n_t, (n_p,), generator=g)
+        noise = torch.randn(n_p, 7, generator=g) * torch.tensor(
+            [0.4, 0.1, 0.4, 0.1, 0.1, 0.2, 0.2])
+        pred = gt[src] + noise
+        fp = torch.rand(n_p, generator=g) < 0.3
+        pred[fp, 0] += 12 * (torch.rand(int(fp.sum()), generator=g) - 0.5)
+        pred[fp, 2] += 12 * (torch.rand(int(fp.sum()), generator=g) - 0.5)
+        flip = torch.rand(n_p, generator=g) < 0.1
+        cls = torch.where(flip, (gt_cls[src] + 1) % AP3D_CLASSES, gt_cls[src])
+        scores = torch.rand(n_p, generator=g)
+        samples.append((
+            sc.BoundingBoxes3D(pred, labels=sc.Labels(
+                cls.float(), scores=scores)).to(device),
+            sc.BoundingBoxes3D(gt, labels=sc.Labels(gt_cls.float())
+                               ).to(device)))
+    return samples
+
+
+def ap3d_step(device):
+    """ApMetrics3D over 100 frames on the card and on the CPU. Gate: equal
+    maps. IoUs within 1e-5 of a threshold printed; ms per add_sample."""
+    from aloception_tpu_torch.metrics import ApMetrics3D
+    from aloception_tpu_torch.metrics.ap_metrics_3d import IOU3D_THRESHOLDS
+    maps, ms = {}, {}
+    for where in ("cpu", device):
+        samples = ap3d_samples(where)
+        m = ApMetrics3D()
+        if where != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p, t in samples:
+            m.add_sample(p, t)
+        ms[str(where)] = 1e3 * (time.perf_counter() - t0) / len(samples)
+        maps[str(where)] = m.calc_map()
+    card, cpu = maps[str(device)], maps["cpu"]
+    near = []
+    for p, t in ap3d_samples(device):
+        iou = p.iou3d_with(t)
+        for thr in IOU3D_THRESHOLDS:
+            close = (iou - thr).abs() < 1e-5
+            near += [(thr, float(v)) for v in iou[close].tolist()]
+    print(f"geometry ApMetrics3D: {AP3D_SAMPLES} frames of {AP3D_PRED} "
+          f"predictions x {AP3D_GT} targets, {AP3D_CLASSES} classes: card "
+          f"{card['all']} == CPU {cpu['all']}: {card == cpu}; IoUs within "
+          f"1e-5 of a threshold {near}; ms per add_sample card "
+          f"{ms[str(device)]:.3f}, CPU {ms['cpu']:.3f}")
+    if card != cpu:
+        raise AssertionError(f"ApMetrics3D card {card} != CPU {cpu}")
+    return {"map": card["all"], "near_threshold": near,
+            "add_sample_ms": ms[str(device)], "add_sample_ms_cpu": ms["cpu"]}
+
+
+def pairwise_iou_step(device):
+    """pairwise(cal_iou_3d) at 500 x 200 (Waymo scale) in float32: device
+    ms per call (CUDA events), device activities per call (a trace), the
+    same call's ms on the CPU (host clock)."""
+    from torch.profiler import ProfilerActivity
+    from aloception_tpu_torch.ops import rotated_iou as riou
+    g = torch.Generator().manual_seed(61)
+    b1 = iou_boxes(PAIRWISE[0], 3, g) * torch.tensor([20, 20, 2] + [1] * 4)
+    b2 = iou_boxes(PAIRWISE[1], 3, g) * torch.tensor([20, 20, 2] + [1] * 4)
+    c1, c2 = b1.to(device), b2.to(device)
+
+    def call():
+        return riou.pairwise(riou.cal_iou_3d, c1, c2)
+    card_ms = cuda_ms(call, iters=10, warmup=2)
+    prof = _trace(call, [ProfilerActivity.CUDA], 3)
+    activities, busy_us, _ = _device_busy(prof)
+    activities, busy_ms = activities / 3, busy_us / 3e3
+    ref = riou.pairwise(riou.cal_iou_3d, b1, b2)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        riou.pairwise(riou.cal_iou_3d, b1, b2)
+    cpu_ms = 1e3 * (time.perf_counter() - t0) / 3
+    err = float((call().cpu() - ref).abs().max())
+    print(f"geometry pairwise cal_iou_3d {PAIRWISE[0]}x{PAIRWISE[1]} fp32: "
+          f"card {card_ms:.3f} ms a call (CUDA events), device-busy "
+          f"{busy_ms:.3f} ms and {activities:.0f} device activities a call "
+          f"(trace); CPU {cpu_ms:.1f} ms; card vs CPU {err:.2e}")
+    if err > 1e-5:
+        raise AssertionError(f"pairwise cal_iou_3d card vs CPU {err}")
+    return {"ms": card_ms, "busy_ms": busy_ms, "activities": activities,
+            "cpu_ms": cpu_ms, "max_abs_err": err}
+
+
+def depth_metrics_step(device):
+    """DepthMetrics over 4 KITTI-sized depth pairs with a validity mask, on
+    the card and on the CPU. Gate: every key within 1e-9 relative."""
+    from aloception_tpu_torch.metrics import DepthMetrics
+    g = torch.Generator().manual_seed(71)
+    pairs = []
+    for _ in range(DEPTH_PAIRS):
+        t = 0.5 + 89.5 * torch.rand(1, *KITTI_HW, generator=g)
+        p = t * (0.7 + 0.7 * torch.rand(1, *KITTI_HW, generator=g))
+        valid = (torch.rand(*KITTI_HW, generator=g) > 0.3).float()
+        pairs.append((p, t, valid))
+    keys = {}
+    for where in ("cpu", device):
+        m = DepthMetrics()
+        for p, t, valid in pairs:
+            m.add_sample(p.to(where), t.to(where), valid.to(where))
+        keys[str(where)] = m.calc_map()
+    card, cpu = keys[str(device)], keys["cpu"]
+    rel = max(abs(card[k] - v) / abs(v) for k, v in cpu.items())
+    print(f"geometry DepthMetrics: {DEPTH_PAIRS} pairs {KITTI_HW} masked, "
+          f"card vs CPU max relative {rel:.2e} (gate 1e-9): {card}")
+    if card.keys() != cpu.keys() or rel > 1e-9:
+        raise AssertionError(f"DepthMetrics card {card} vs CPU {cpu}")
+    return {"max_rel_err": rel, "keys": card}
+
+
+def readers_step():
+    """The golden .flo and .pfm through the port's readers equal their
+    expected arrays exactly."""
+    import os
+    import numpy as np
+    from aloception_tpu_torch.aloscene.io.disparity import load_pfm
+    from aloception_tpu_torch.aloscene.io.flow import load_flow_flo
+    fx = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "fixtures")
+    flo = np.moveaxis(load_flow_flo(os.path.join(fx, "golden.flo")).numpy(),
+                      0, -1)
+    pfm = load_pfm(os.path.join(fx, "golden.pfm")).numpy()
+    want_flo = np.load(os.path.join(fx, "golden_flo_expected.npy"))
+    want_pfm = np.load(os.path.join(fx, "golden_pfm_expected.npy"))
+    ok = np.array_equal(flo, want_flo) and np.array_equal(
+        pfm.reshape(want_pfm.shape), want_pfm)
+    print(f"geometry readers: golden.flo {flo.shape}, golden.pfm "
+          f"{pfm.shape} equal to their expected arrays: {ok}")
+    if not ok:
+        raise AssertionError("a golden file read differently")
+    return ok
+
+
+def geometry_phase(device):
+    """aloscene's 3-D geometry on the card: the IoU parity, a KITTI-sized
+    scene's chain, the 3D AP, the pairwise 3D IoU at Waymo scale, the depth
+    metrics and the file readers. The path launches neither hand-written
+    kernel: both counts are read around it and must stay 0."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = {"iou": iou_parity_step(device), "scene": kitti_scene_step(device),
+           "ap3d": ap3d_step(device), "pairwise": pairwise_iou_step(device),
+           "depth_metrics": depth_metrics_step(device),
+           "readers_equal": readers_step()}
+    out["kernel_launches"] = dict(zip(("ms_deform_attn", "msda_backward",
+                                       "hungarian"), _counts()))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"geometry phase: {out['seconds']:.1f} s, hand-written kernel "
+          f"launches {out['kernel_launches']}")
+    if any(out["kernel_launches"].values()):
+        raise AssertionError("the geometry path launched a kernel")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: "
@@ -2918,6 +3329,8 @@ def main():
     export = export_phase(device)
     export["tiny"] = tiny_export_phase(device)
     export["quantization"] = quantization_phase(device)
+    torch.cuda.empty_cache()
+    geometry = geometry_phase(device)
     export_msda = export["deformable"]["request_msda_launches"]
     pan_train = panoptic_train["deformable_detr_r50_panoptic"]
     pan_msda = {
@@ -3012,7 +3425,10 @@ def main():
         # detector runs the MSDA kernel (launches above)
         "panoptic": panoptic,
         # AOTInductor packages: the Deformable one calls the MSDA operator
-        "export": export}))
+        "export": export,
+        # aloscene's 3-D geometry, the 3D AP and the depth metrics: torch
+        # ops, no kernel of the port
+        "geometry": geometry}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -72,6 +72,61 @@ def test_export_modules_are_checked(module):
     assert PKG / module in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "ops/rotated_iou.py", "aloscene/camera_calib.py", "aloscene/points_2d.py",
+    "aloscene/points_3d.py", "aloscene/oriented_boxes_2d.py",
+    "aloscene/bounding_boxes_3d.py", "aloscene/depth.py",
+    "aloscene/disparity.py", "aloscene/io/__init__.py",
+    "aloscene/io/errors.py", "aloscene/io/flow.py",
+    "aloscene/io/disparity.py", "aloscene/io/depth.py",
+    "aloscene/utils/__init__.py", "aloscene/utils/flow_utils.py",
+    "metrics/depth_metrics.py", "metrics/ap_metrics_3d.py"])
+def test_geometry_modules_are_checked(module):
+    """The 3-D geometry slice's modules are among the sources checked
+    below."""
+    assert PKG / module in SOURCES
+
+
+@pytest.mark.parametrize("child", ["points2d", "cam_intrinsic"])
+def test_rotate_carries_unrotatable_children_as_jax(child):
+    """``Points2D`` and ``CameraIntrinsic`` cannot rotate (their
+    ``_rotate`` raises NotImplementedError); rotating a frame that holds
+    one carries it over unchanged in both packages, since the recursion
+    into the children skips a child whose op is not implemented."""
+    import numpy as np
+    import torch
+    import aloception_tpu.aloscene as jsc
+    import aloception_tpu_torch.aloscene as tsc
+    from test_torch_aloscene import same
+
+    def make(pkg, conv):
+        f = pkg.Frame(conv(np.ones((3, 16, 24), np.float32)),
+                      normalization="01")
+        if child == "points2d":
+            f.append_points2d(pkg.Points2D(
+                conv(np.array([[0.2, 0.3]], np.float32)), "xy", False))
+        else:
+            f.append_cam_intrinsic(pkg.CameraIntrinsic(
+                focal_length=10.0, plane_size=(16, 24)))
+        return f
+    jf, tf = make(jsc, lambda a: a), make(tsc, torch.from_numpy)
+    with pytest.raises(NotImplementedError):
+        tf.get_child(child)._rotate(5.0)
+    with pytest.raises(NotImplementedError):
+        jf.get_child(child)._rotate(5.0)
+    same(tf.rotate(5.0).get_child(child), tf.get_child(child), atol=0)
+    same(tf.rotate(5.0), jf.rotate(5.0), atol=1e-5)
+
+
+def test_png_disparity_names_the_missing_decoder(tmp_path):
+    from aloception_tpu_torch.aloscene import Disparity, InvalidSampleError
+    from aloception_tpu_torch.aloscene.io.disparity import load_disp
+    path = str(tmp_path / "disp.png")
+    for load in (load_disp, Disparity):
+        with pytest.raises(InvalidSampleError, match="image decoder"):
+            load(path)
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(PKG)))
 def test_no_jax_import(path):
     roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))

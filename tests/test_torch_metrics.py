@@ -220,3 +220,96 @@ def test_pq_masks_on_the_card(cuda):
                      mask(tsc, gt, labels[1]).to(device))
         results.append(m.pq_average())
     assert results[0] == results[1]
+
+
+# ---------------------------------------------------------------------------
+# ApMetrics3D and DepthMetrics
+
+def boxes3d(pkg, data, labels, scores=None, names=NAMES):
+    arr = np.asarray(data, np.float32).reshape(-1, 7)
+    lab = np.asarray(labels, np.float32)
+    sc = None if scores is None else np.asarray(scores, np.float32)
+    if pkg is tsc:
+        arr, lab = torch.from_numpy(arr), torch.from_numpy(lab)
+        sc = None if sc is None else torch.from_numpy(sc)
+    return pkg.BoundingBoxes3D(arr, labels=pkg.Labels(lab, scores=sc,
+                                                      labels_names=names))
+
+
+def both_ap3d(samples, monkeypatch):
+    """The port's and the JAX package's ApMetrics3D.calc_map after the same
+    (pred, gt) samples of (boxes, labels[, scores]); they must be equal."""
+    from torch_parity import jit_jax_pairwise
+    jit_jax_pairwise(monkeypatch)
+    out = []
+    for pkg, metrics in ((tsc, tmetrics), (jsc, jmetrics)):
+        m = metrics.ApMetrics3D()
+        for pred, gt in samples:
+            m.add_sample(boxes3d(pkg, *pred), boxes3d(pkg, *gt))
+        out.append(m.calc_map())
+    assert out[0] == out[1]
+    return out[0]
+
+
+def test_ap_metrics_3d(monkeypatch):
+    """The replayed case of test_rotated_iou_and_3d.py: a near-perfect
+    detection."""
+    gt = ([[0.0, 0.0, 10.0, 2.0, 2.0, 2.0, 0.0]], [0.0])
+    pred = ([[0.05, 0.0, 10.0, 2.0, 2.0, 2.0, 0.0]], [0.0], [0.9])
+    maps = both_ap3d([(pred, gt)], monkeypatch)
+    assert maps["all"][50] > 90
+
+
+def random_scene_3d(rng, n_gt=12, n_fp=6):
+    """(pred, gt): targets over 3 classes, predictions that are jittered
+    copies (some with the wrong class) plus false positives, scored."""
+    gt = np.concatenate([rng.uniform(-20, 20, (n_gt, 1)),
+                         rng.uniform(-2, 2, (n_gt, 1)),
+                         rng.uniform(5, 60, (n_gt, 1)),
+                         rng.uniform(1, 5, (n_gt, 3)),
+                         rng.uniform(-np.pi, np.pi, (n_gt, 1))], 1)
+    gt_labels = rng.randint(0, 3, n_gt).astype(np.float32)
+    jitter = gt + rng.normal(0, 0.3, gt.shape) * [1, 1, 1, .2, .2, .2, .5]
+    fp = gt[rng.randint(0, n_gt, n_fp)] + rng.uniform(-6, 6, (n_fp, 7)) \
+        * [1, 0, 1, 0, 0, 0, 1]
+    labels = np.concatenate([np.where(rng.rand(n_gt) < 0.1,
+                                      (gt_labels + 1) % 3, gt_labels),
+                             rng.randint(0, 3, n_fp)]).astype(np.float32)
+    pred = np.concatenate([jitter, fp])
+    return ((pred, labels, rng.uniform(0, 1, len(pred))), (gt, gt_labels))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ap_metrics_3d_random_samples(seed, monkeypatch):
+    rng = np.random.RandomState(seed)
+    maps = both_ap3d([random_scene_3d(rng) for _ in range(6)], monkeypatch)
+    assert 0 < maps["all"][10] < 100 and set(maps["all"]) == {
+        10, 25, 50, 70, "all"}
+
+
+def depth_pair(rng, hw=(24, 32)):
+    t = rng.uniform(0.5, 90.0, (1,) + hw).astype(np.float32)
+    p = (t * rng.uniform(0.7, 1.4, t.shape)).astype(np.float32)
+    t[0, 0, :4] = [0.0, np.inf, np.nan, 100.0]
+    p[0, 1, :2] = [np.nan, np.inf]
+    return p, t, (rng.uniform(0, 1, hw) > 0.2).astype(np.float32)
+
+
+def test_depth_metrics_match_jax():
+    """Every key within 1e-9 relative, with and without a validity mask,
+    a sample without a valid pixel skipped."""
+    rng = np.random.RandomState(4)
+    tm, jm = tmetrics.DepthMetrics(), jmetrics.DepthMetrics()
+    for i in range(3):
+        p, t, mask = depth_pair(rng)
+        m = mask if i else None
+        tm.add_sample(tsc.Depth(torch.from_numpy(p)), torch.from_numpy(t),
+                      None if m is None else torch.from_numpy(m))
+        jm.add_sample(jsc.Depth(p), t, m)
+    empty = np.zeros((1, 4, 4), np.float32)
+    tm.add_sample(torch.from_numpy(empty), torch.from_numpy(empty))
+    jm.add_sample(empty, empty)
+    got, want = tm.calc_map(), jm.calc_map()
+    assert len(tm) == len(jm) == 3 and got.keys() == want.keys()
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-9 * abs(want[k]), k

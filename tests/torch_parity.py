@@ -59,3 +59,12 @@ def with_7x7_stem(backbone_params, rng: np.random.RandomState):
     w7 = (rng.randn(7, 7, 3, 64) / np.sqrt(147)).astype(np.float32)
     backbone_params["trunk"]["conv1"]["kernel"] = np.asarray(
         conv1_to_s2d_kernel(w7))
+
+
+def jit_jax_pairwise(monkeypatch):
+    """Run the JAX package's ``rotated_iou.pairwise`` jitted: one compile a
+    shape instead of one per primitive (seconds on the CPU). The boxes'
+    IoU methods look it up at call time."""
+    from aloception_tpu.ops import rotated_iou
+    monkeypatch.setattr(rotated_iou, "pairwise",
+                        jax.jit(rotated_iou.pairwise, static_argnums=0))
