@@ -19,7 +19,7 @@ import torch
 
 from ..aloscene import Flow, Frame, Mask
 from ..aloscene.spatial import _cat_batched
-from .coco_detection import Loader
+from .base_dataset import LoaderFactory
 
 
 class FlyingChairs2Dataset:
@@ -55,6 +55,7 @@ class FlyingChairs2Dataset:
 
     def train_loader(self, batch_size: int = 1, shuffle: bool = True,
                      seed: Optional[int] = None, drop_last: bool = True
-                     ) -> Loader:
-        """Re-iterable loader of lists of pairs, reshuffled each epoch."""
-        return Loader(self, batch_size, shuffle, seed, drop_last)
+                     ) -> LoaderFactory:
+        """Re-iterable loader of lists of pairs, reshuffled each epoch,
+        made in the calling thread."""
+        return LoaderFactory(self, batch_size, 0, shuffle, seed, drop_last)

@@ -5,8 +5,7 @@
 ``sequence_size=2``), made from the same numpy seeds: 96x128 noise frames,
 the second shifted by one pixel from the first, which carries a
 ``flow_forward`` ``Flow`` of ones and an all-zero occlusion ``Mask``.
-Sintel on disk needs ``Frame(path)`` (an image decoder) and waits in ROADMAP
-A10/A14.
+Sintel on disk waits in ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ import torch
 
 from ..aloscene import Flow, Frame, Mask
 from ..aloscene.spatial import _cat_batched
-from .coco_detection import Loader
+from .base_dataset import LoaderFactory
 
 
 class SintelFlowDataset:
@@ -28,7 +27,7 @@ class SintelFlowDataset:
     def __init__(self, sample: bool = False):
         if not sample:
             raise NotImplementedError(
-                "Sintel on disk is not ported yet (ROADMAP A10/A14); pass "
+                "Sintel on disk is not ported yet (ROADMAP A10); pass "
                 "sample=True")
         self.items = list(range(6))
 
@@ -52,6 +51,7 @@ class SintelFlowDataset:
 
     def train_loader(self, batch_size: int = 1, shuffle: bool = True,
                      seed: Optional[int] = None, drop_last: bool = True
-                     ) -> Loader:
-        """Re-iterable loader of lists of pairs, reshuffled each epoch."""
-        return Loader(self, batch_size, shuffle, seed, drop_last)
+                     ) -> LoaderFactory:
+        """Re-iterable loader of lists of pairs, reshuffled each epoch,
+        made in the calling thread."""
+        return LoaderFactory(self, batch_size, 0, shuffle, seed, drop_last)

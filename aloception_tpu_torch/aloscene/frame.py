@@ -7,7 +7,7 @@ flow, disparity, depth, segmentation, labels, pose, scene_flow.
 
 Normalization states: "255", "01", "minmax_sym", or a named mean/std norm
 (e.g. "resnet"). Integer payloads are converted in float32. ``Frame(path)``
-(image loading) is not ported yet.
+decodes an image file with ``runtime.decode`` (CHW RGB, "255").
 """
 
 from __future__ import annotations
@@ -30,8 +30,8 @@ class Frame(SpatialAugmentedArray):
                  normalization: str = "255", mean_std: Optional[Tuple] = None,
                  names=("C", "H", "W"), **kwargs):
         if isinstance(x, str):
-            raise NotImplementedError(
-                "Frame(path): image loading is not ported yet; pass a tensor")
+            from .io.image import load_image
+            x = load_image(x)
         super().__init__(x, names=names, **kwargs)
         for name, value, mergeable in (
                 ("points2d", points2d, False), ("points3d", points3d, False),

@@ -1,6 +1,6 @@
-"""Disparity files: ``.pfm`` (counterpart of
-``aloception_tpu/aloscene/io/disparity.py``). The ``.png`` branch waits for
-the port's image decoder: it raises ``InvalidSampleError``."""
+"""Disparity files: ``.pfm`` and KITTI's 16-bit ``.png`` (counterpart of
+``aloception_tpu/aloscene/io/disparity.py``). A PNG is decoded by the port's
+native loader at its stored depth; its values / 256 are pixels."""
 
 from __future__ import annotations
 
@@ -35,12 +35,18 @@ def load_pfm(path: str) -> torch.Tensor:
 
 
 def load_disp(path: str, png_negate=None) -> torch.Tensor:
-    """(C, H, W) float32 disparity from a .pfm file."""
+    """(C, H, W) float32 disparity from a .pfm file, or from a grey PNG
+    (uint16 / 256, KITTI's convention), negated if ``png_negate``, which a
+    PNG needs set explicitly."""
     if path.endswith(".pfm"):
         return load_pfm(path)
     if path.endswith(".png"):
-        raise InvalidSampleError(
-            f"cannot read {path}: .png disparity needs an image decoder, "
-            "which the port does not have yet (the native loader, ROADMAP "
-            "A10)")
+        from ...runtime import decode
+        disp = decode(path, "anydepth").float()[..., 0] / 256.0
+        if png_negate is None:
+            raise ValueError(
+                "png_negate must be set explicitly when loading .png disparity")
+        if png_negate:
+            disp = -disp
+        return disp[None]
     raise InvalidSampleError(f"unsupported disparity format: {path}")

@@ -1,5 +1,6 @@
 """Mask: (N|1, H, W) float occupancy masks with optional Labels (counterpart
-of ``aloception_tpu/aloscene/mask.py``, without loading and views)."""
+of ``aloception_tpu/aloscene/mask.py``, without the view). ``Mask(path)``
+reads an image file as grey / 255, (1, H, W)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,10 @@ class Mask(SpatialAugmentedArray):
 
     def __init__(self, x, labels: Union[dict, Labels, None] = None,
                  names=("N", "H", "W"), **kwargs):
+        if isinstance(x, str):
+            from .io.mask import load_mask
+            x = load_mask(x)
+            names = ("N", "H", "W")
         super().__init__(x, names=names, **kwargs)
         self.add_child("labels", labels, align_dim=["N"], mergeable=True)
 

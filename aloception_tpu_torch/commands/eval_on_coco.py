@@ -6,6 +6,7 @@ Examples
 --------
 python -m aloception_tpu_torch.commands.eval_on_coco --cpu --sample --tiny --model panoptic --limit_batches 1 --size 96 128
 python -m aloception_tpu_torch.commands.eval_on_coco --sample --model panoptic_deformable --limit_batches 2
+python -m aloception_tpu_torch.commands.eval_on_coco --model deformable --multiscale --limit_batches 10
 
 Each batch goes through the data module (resize to ``--size``,
 ``norm_resnet``, ``batch_list``) -> the model -> ``inference`` (for the
@@ -14,8 +15,12 @@ padded size) -> ``ApMetrics`` and ``PQMetrics``. The softmax models keep
 queries of a class other than the background one scoring over
 ``--threshold``; the sigmoid ones (Deformable-DETR) over max(threshold,
 0.2). Runs on the CUDA card, or on the CPU with ``--cpu``; without a card
-and without ``--cpu`` it raises. Only the offline synthetic sample
-(``--sample``) is ported (COCO on disk: ROADMAP A10). Without ``--weights``,
+and without ``--cpu`` it raises. Without ``--sample`` it reads COCO's
+``val2017`` on disk from the directory that
+``~/.aloception_tpu/alodataset_config.json`` names under "coco".
+``--multiscale`` (a flag the JAX command lacks) resizes to a shorter side of
+800, longer at most 1333, and pads each batch to its multi-scale bucket,
+instead of resizing to ``--size``. Without ``--weights``,
 ``--ckpt_dir`` or ``--run_id`` the weights are random, from a seeded
 generator.
 """
@@ -38,7 +43,11 @@ def main(argv=None):
     p.add_argument("--sample", action="store_true",
                    help="use the offline synthetic COCO sample")
     p.add_argument("--batch_size", type=int, default=2)
+    p.add_argument("--num_workers", type=int, default=2)
     p.add_argument("--size", type=int, nargs=2, default=(480, 640))
+    p.add_argument("--multiscale", action="store_true",
+                   help="shorter side 800, longer at most 1333, batches "
+                        "padded to their multi-scale bucket")
     p.add_argument("--ckpt_dir", default=None,
                    help="restore the model of a checkpoint saved by the "
                         "port's trainer")
@@ -79,8 +88,10 @@ def main(argv=None):
 
     panoptic = args.model.startswith("panoptic")
     deformable = args.model in ("deformable", "panoptic_deformable")
-    dm = CocoDetection2Detr(batch_size=args.batch_size, sample=args.sample,
-                            size=tuple(args.size), return_masks=panoptic)
+    dm = CocoDetection2Detr(batch_size=args.batch_size,
+                            num_workers=args.num_workers, sample=args.sample,
+                            size=None if args.multiscale else tuple(args.size),
+                            return_masks=panoptic)
     n_cls = len(dm.label_names) if dm.label_names else 91
 
     kwargs = dict(num_classes=n_cls, device=device)

@@ -11,7 +11,7 @@ multiple of 8) -> RAFT (``only_last``) -> ``unpad``, and its EPE is the mean
 over pixels of the flow's distance to the ground truth. Runs on the CUDA
 card, or on the CPU with ``--cpu``; without a card and without ``--cpu`` it
 raises. Only the offline synthetic sample (``--sample``) is ported (Sintel
-on disk: ROADMAP A10/A14). Without ``--weights`` or ``--ckpt_dir`` the weights
+on disk: ROADMAP A10). Without ``--weights`` or ``--ckpt_dir`` the weights
 are random, from a seeded generator.
 """
 

@@ -8,14 +8,21 @@ python -m aloception_tpu_torch.commands.train_on_coco --model deformable --sampl
     --batch_size 8 --size 640 640 --max_steps 100
 python -m aloception_tpu_torch.commands.train_on_coco --model panoptic_deformable --sample \
     --batch_size 4 --size 640 640 --max_steps 100
+python -m aloception_tpu_torch.commands.train_on_coco --model deformable --multiscale \
+    --batch_size 2 --max_steps 100
 
 ``--model panoptic`` and ``--model panoptic_deformable`` train the panoptic
 head on a frozen DETR-R50 or Deformable-DETR-R50 (without refinement), the
 latter with the focal criterion and matcher as its base; validation reports
 PQ for them and AP for the detectors.
+Without ``--sample`` it reads COCO on disk (``train2017``, ``val2017``,
+``annotations/instances_{train,val}2017.json``) from the directory that
+``~/.aloception_tpu/alodataset_config.json`` names under "coco", its frames
+made by ``--num_workers`` threads; ``--multiscale`` trains at the
+reference's multi-scale geometry (shorter side 480-800, longer at most
+1333, batches padded to ``MULTISCALE_BUCKETS``) instead of ``--size``.
 Runs on the CUDA card, or on the CPU with ``--cpu``; without a card and
-without ``--cpu`` it raises. Only the offline synthetic sample (``--sample``)
-is ported; COCO on disk and ``--multiscale`` wait in ROADMAP A10.
+without ``--cpu`` it raises.
 """
 
 from __future__ import annotations
@@ -24,8 +31,7 @@ import argparse
 
 # flags of the JAX command that the port does not take yet, with their
 # ROADMAP item
-NOT_PORTED = {"multiscale": "A10", "bf16": "A6", "log": "A6", "tp": "A12",
-              "multihost": "A12"}
+NOT_PORTED = {"bf16": "A6", "log": "A6", "tp": "A12", "multihost": "A12"}
 
 
 def add_argparse_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -34,7 +40,9 @@ def add_argparse_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                             "panoptic_deformable"])
     p.add_argument("--sample", action="store_true",
                    help="use the offline synthetic COCO sample")
+    p.add_argument("--train_on_val", action="store_true")
     p.add_argument("--batch_size", type=int, default=2)
+    p.add_argument("--num_workers", type=int, default=2)
     p.add_argument("--max_epochs", type=int, default=1)
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--fast_dev_run", action="store_true",
@@ -52,7 +60,9 @@ def add_argparse_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true", help="train on the CPU")
     p.add_argument("--tiny", action="store_true",
                    help="tiny model for smoke runs")
-    p.add_argument("--multiscale", action="store_true")
+    p.add_argument("--multiscale", action="store_true",
+                   help="reference multi-scale geometry (scales 480-800, "
+                        "max 1333, bucketed padding) instead of --size")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--log", default=None)
     p.add_argument("--tp", type=int, default=None)
@@ -74,9 +84,11 @@ def main(argv=None):
 
     device = entry_device("cpu" if args.cpu else None)
     panoptic = args.model.startswith("panoptic")
-    dm = CocoDetection2Detr(batch_size=args.batch_size, sample=args.sample,
-                            size=tuple(args.size), seed=args.seed,
-                            return_masks=panoptic)
+    dm = CocoDetection2Detr(batch_size=args.batch_size,
+                            num_workers=args.num_workers,
+                            train_on_val=args.train_on_val, sample=args.sample,
+                            size=None if args.multiscale else tuple(args.size),
+                            seed=args.seed, return_masks=panoptic)
     kwargs = dict(data_module=dm, run_id=args.run_id,
                   expe_name=args.expe_name, device=device, seed=args.seed,
                   callbacks=[MetricsCallback(), PQMetricsCallback()

@@ -1,0 +1,659 @@
+// Native image code for aloception_tpu_torch: PNG and BMP decoded at their
+// native size, the bilinear resize + normalize of the batch loader into
+// caller-owned float buffers, and the polygon fill of COCO segmentations.
+//
+// Counterpart of aloception_tpu/runtime/aloloader.cpp (threaded decode +
+// resize + normalize), which links libjpeg and libpng. The machine that
+// holds the card has neither, only zlib; JPEG and WebP are decoded by
+// Pillow's libjpeg-turbo and libwebp (runtime/loader.py), and this file
+// carries the decoders Pillow cannot stand in for:
+//   - PNG: every colour type at 1-16 bits, interlaced or not, inflated
+//     with zlib (Pillow reduces 16-bit colour to 8 bits).
+//   - BMP: uncompressed 8 (palette), 24 and 32 bits.
+// Decoding raises nothing: every entry returns a status and writes the
+// reason of a failure into the caller's message buffer.
+//
+// Build: g++ -O3 -march=native -std=c++17 -shared -fPIC aloloader.cpp -lz
+//        -o libaloloader.so
+//
+// C ABI (ctypes; the caller releases nothing but what alo_decode hands out,
+// with alo_free):
+//   alo_decode(path, mode, &h, &w, &c, &bytes_per_sample, &data, err,
+//              errlen) -> 0 or an error code
+//     mode: 0 = colour (RGB, 8 bit, as cv2.IMREAD_COLOR after BGR->RGB),
+//           1 = grey (8 bit, cv2.IMREAD_GRAYSCALE),
+//           2 = grey at the stored depth (cv2.IMREAD_ANYDEPTH),
+//           3 = as stored (channels and depth, RGB(A) order).
+//   alo_resize_normalize(src, h, w, out, H, W, mode, mean, std): an RGB
+//     uint8 image to (H, W, 3) float32 as the JAX loader does: mode 0 = raw
+//     0..255, 1 = /255, 2 = resnet.
+//   alo_fill_poly(mask, h, w, xy, n): cv2.fillPoly(mask, [xy], 1) with
+//     8-connected edges, integer vertices.
+
+#include <zlib.h>
+
+#include <algorithm>
+#include <climits>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <string>
+#include <vector>
+
+namespace {
+
+enum Status {
+  kOk = 0,
+  kNoFile = 1,      // cannot open or read the file
+  kUnknown = 2,     // not a PNG or BMP
+  kCorrupt = 3,     // the data is damaged or truncated
+  kUnsupported = 4  // a valid file with a feature the decoder does not take
+};
+
+enum Mode { kColor = 0, kGray = 1, kAnyDepth = 2, kUnchanged = 3 };
+
+struct Image {
+  std::vector<uint8_t> data;  // HWC, row-major, 1 or 2 bytes a sample
+  int h = 0, w = 0, c = 0, bytes = 1;
+};
+
+struct Failure {
+  int code;
+  std::string msg;
+};
+
+// ------------------------------------------------------------------- PNG ----
+inline uint32_t be32(const uint8_t* p) {
+  return (uint32_t(p[0]) << 24) | (uint32_t(p[1]) << 16) |
+         (uint32_t(p[2]) << 8) | p[3];
+}
+
+inline int paeth(int a, int b, int c) {
+  int p = a + b - c, pa = abs(p - a), pb = abs(p - b), pc = abs(p - c);
+  if (pa <= pb && pa <= pc) return a;
+  return pb <= pc ? b : c;
+}
+
+bool unfilter(uint8_t* rows, int nrows, size_t rowbytes, int bpp) {
+  std::vector<uint8_t> zero(rowbytes, 0);
+  const uint8_t* prev = zero.data();
+  for (int y = 0; y < nrows; ++y) {
+    uint8_t* r = rows + y * (rowbytes + 1);
+    int f = r[0];
+    uint8_t* x = r + 1;
+    for (size_t i = 0; i < rowbytes; ++i) {
+      int a = i >= size_t(bpp) ? x[i - bpp] : 0, b = prev[i];
+      int c = i >= size_t(bpp) ? prev[i - bpp] : 0;
+      switch (f) {
+        case 0: break;
+        case 1: x[i] = uint8_t(x[i] + a); break;
+        case 2: x[i] = uint8_t(x[i] + b); break;
+        case 3: x[i] = uint8_t(x[i] + ((a + b) >> 1)); break;
+        case 4: x[i] = uint8_t(x[i] + paeth(a, b, c)); break;
+        default: return false;
+      }
+    }
+    prev = x;
+  }
+  return true;
+}
+
+Failure decode_png(const uint8_t* buf, size_t len, int mode, Image* img) {
+  static const uint8_t sig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
+  if (len < 8 || memcmp(buf, sig, 8) != 0) return {kUnknown, "not a PNG"};
+  size_t pos = 8;
+  int W = 0, H = 0, depth = 0, ctype = -1, interlace = 0;
+  std::vector<uint8_t> idat, palette;
+  bool ended = false;
+  while (pos + 12 <= len) {
+    uint32_t n = be32(buf + pos);
+    const uint8_t* type = buf + pos + 4;
+    if (pos + 12 + size_t(n) > len)
+      return {kCorrupt, "corrupt PNG: truncated chunk"};
+    const uint8_t* d = buf + pos + 8;
+    if (!memcmp(type, "IHDR", 4)) {
+      if (n < 13) return {kCorrupt, "corrupt PNG: IHDR"};
+      W = int(be32(d));
+      H = int(be32(d + 4));
+      depth = d[8];
+      ctype = d[9];
+      interlace = d[12];
+    } else if (!memcmp(type, "PLTE", 4)) {
+      palette.assign(d, d + n);
+    } else if (!memcmp(type, "IDAT", 4)) {
+      idat.insert(idat.end(), d, d + n);
+    } else if (!memcmp(type, "IEND", 4)) {
+      ended = true;
+      break;
+    }
+    pos += 12 + size_t(n);
+  }
+  if (W <= 0 || H <= 0 || ctype < 0) return {kCorrupt, "corrupt PNG: no IHDR"};
+  if (idat.empty()) return {kCorrupt, "corrupt PNG: no image data"};
+  (void)ended;
+  int chans;
+  switch (ctype) {
+    case 0: chans = 1; break;
+    case 2: chans = 3; break;
+    case 3: chans = 1; break;
+    case 4: chans = 2; break;
+    case 6: chans = 4; break;
+    default: return {kCorrupt, "corrupt PNG: colour type"};
+  }
+  if (!(depth == 1 || depth == 2 || depth == 4 || depth == 8 || depth == 16) ||
+      (ctype != 0 && ctype != 3 && depth < 8) || (ctype == 3 && depth > 8))
+    return {kCorrupt, "corrupt PNG: bit depth"};
+  if (ctype == 3 && palette.size() < 3)
+    return {kCorrupt, "corrupt PNG: missing palette"};
+  const int bits_px = chans * depth;
+  const int bpp = std::max(1, bits_px / 8);
+  // the sub-images: one, or Adam7's seven
+  static const int x0[7] = {0, 4, 0, 2, 0, 1, 0}, y0[7] = {0, 0, 4, 0, 2, 0, 1};
+  static const int dx[7] = {8, 8, 4, 4, 2, 2, 1}, dy[7] = {8, 8, 8, 4, 4, 2, 2};
+  const int passes = interlace ? 7 : 1;
+  size_t total = 0;
+  int pw[7], ph[7];
+  for (int p = 0; p < passes; ++p) {
+    pw[p] = interlace ? (W - x0[p] + dx[p] - 1) / dx[p] : W;
+    ph[p] = interlace ? (H - y0[p] + dy[p] - 1) / dy[p] : H;
+    if (pw[p] > 0 && ph[p] > 0)
+      total += size_t(ph[p]) * ((size_t(pw[p]) * bits_px + 7) / 8 + 1);
+  }
+  std::vector<uint8_t> raw(total);
+  z_stream zs;
+  memset(&zs, 0, sizeof(zs));
+  if (inflateInit(&zs) != Z_OK) return {kCorrupt, "zlib inflateInit failed"};
+  zs.next_in = idat.data();
+  zs.avail_in = uInt(idat.size());
+  zs.next_out = raw.data();
+  zs.avail_out = uInt(raw.size());
+  int zr = inflate(&zs, Z_FINISH);
+  size_t got = raw.size() - zs.avail_out;
+  inflateEnd(&zs);
+  if ((zr != Z_STREAM_END && zr != Z_BUF_ERROR && zr != Z_OK) || got < total)
+    return {kCorrupt, "corrupt PNG: image data does not inflate"};
+  // samples as uint16, HW x chans (palette expanded to RGB)
+  const int out_chans = ctype == 3 ? 3 : chans;
+  std::vector<uint16_t> s(size_t(W) * H * out_chans);
+  size_t off = 0;
+  for (int p = 0; p < passes; ++p) {
+    if (pw[p] <= 0 || ph[p] <= 0) continue;
+    size_t rowbytes = (size_t(pw[p]) * bits_px + 7) / 8;
+    if (!unfilter(raw.data() + off, ph[p], rowbytes, bpp))
+      return {kCorrupt, "corrupt PNG: bad filter"};
+    for (int y = 0; y < ph[p]; ++y) {
+      const uint8_t* r = raw.data() + off + y * (rowbytes + 1) + 1;
+      int oy = interlace ? y0[p] + y * dy[p] : y;
+      for (int x = 0; x < pw[p]; ++x) {
+        int ox = interlace ? x0[p] + x * dx[p] : x;
+        uint16_t* o = &s[(size_t(oy) * W + ox) * out_chans];
+        for (int k = 0; k < chans; ++k) {
+          size_t bit = (size_t(x) * chans + k) * depth;
+          unsigned v;
+          if (depth == 16)
+            v = (r[bit / 8] << 8) | r[bit / 8 + 1];
+          else if (depth == 8)
+            v = r[bit / 8];
+          else
+            v = (r[bit / 8] >> (8 - depth - bit % 8)) & ((1 << depth) - 1);
+          if (ctype == 3) {
+            if (3 * v + 2 >= palette.size())
+              return {kCorrupt, "corrupt PNG: palette index"};
+            o[0] = palette[3 * v];
+            o[1] = palette[3 * v + 1];
+            o[2] = palette[3 * v + 2];
+          } else {
+            o[k] = uint16_t(v);
+          }
+        }
+      }
+    }
+    off += size_t(ph[p]) * (rowbytes + 1);
+  }
+  // what libpng's png_set_expand gives grey below 8 bits
+  const int sdepth = ctype == 3 ? 8 : std::max(depth, 8);
+  if (ctype != 3 && depth < 8) {
+    int scale = 255 / ((1 << depth) - 1);
+    for (auto& v : s) v = uint16_t(v * scale);
+  }
+  const size_t n = size_t(W) * H;
+  const bool grey = out_chans <= 2;
+  img->w = W;
+  img->h = H;
+  if (mode == kColor || mode == kGray) {
+    // 16 -> 8 bits by the high byte (libpng's png_set_strip_16), alpha
+    // dropped
+    if (mode == kGray && !grey)
+      return {kUnsupported,
+              "unsupported: a colour PNG read as a grey image (cv2's "
+              "conversion is not reproduced)"};
+    const int c = mode == kColor ? 3 : 1;
+    img->c = c;
+    img->bytes = 1;
+    img->data.resize(n * c);
+    for (size_t i = 0; i < n; ++i) {
+      const uint16_t* px = &s[i * out_chans];
+      for (int k = 0; k < c; ++k) {
+        unsigned v = px[grey ? 0 : k];
+        img->data[i * c + k] = uint8_t(sdepth == 16 ? v >> 8 : v);
+      }
+    }
+    return {kOk, ""};
+  }
+  if (mode == kAnyDepth && !grey)
+    return {kUnsupported,
+            "unsupported: a colour PNG read as grey at its depth"};
+  if (mode == kUnchanged && out_chans == 2)
+    return {kUnsupported, "unsupported: a grey + alpha PNG read unchanged"};
+  const int c = mode == kAnyDepth ? 1 : out_chans;
+  img->c = c;
+  img->bytes = sdepth == 16 ? 2 : 1;
+  img->data.resize(n * c * img->bytes);
+  for (size_t i = 0; i < n; ++i)
+    for (int k = 0; k < c; ++k) {
+      uint16_t v = s[i * out_chans + k];
+      if (img->bytes == 2)
+        memcpy(&img->data[(i * c + k) * 2], &v, 2);
+      else
+        img->data[i * c + k] = uint8_t(v);
+    }
+  return {kOk, ""};
+}
+
+// ------------------------------------------------------------------- BMP ----
+inline uint32_t le32(const uint8_t* p) {
+  return uint32_t(p[0]) | (uint32_t(p[1]) << 8) | (uint32_t(p[2]) << 16) |
+         (uint32_t(p[3]) << 24);
+}
+
+Failure decode_bmp(const uint8_t* buf, size_t len, int mode, Image* img) {
+  if (len < 54 || buf[0] != 'B' || buf[1] != 'M') return {kUnknown, "not BMP"};
+  uint32_t data_off = le32(buf + 10), hsize = le32(buf + 14);
+  if (hsize < 40 || 14 + size_t(hsize) > len)
+    return {kUnsupported, "unsupported BMP header"};
+  int W = int32_t(le32(buf + 18)), Hs = int32_t(le32(buf + 22));
+  int bits = buf[28] | (buf[29] << 8);
+  uint32_t comp = le32(buf + 30), ncolors = le32(buf + 46);
+  if (comp != 0 && !(comp == 3 && bits == 32))
+    return {kUnsupported, "unsupported BMP: compressed"};
+  if (bits != 8 && bits != 24 && bits != 32)
+    return {kUnsupported, "unsupported BMP: " + std::to_string(bits) + " bits"};
+  bool bottom_up = Hs > 0;
+  int H = bottom_up ? Hs : -Hs;
+  if (W <= 0 || H <= 0) return {kCorrupt, "corrupt BMP: size"};
+  size_t stride = ((size_t(W) * bits + 31) / 32) * 4;
+  if (data_off + stride * H > len) return {kCorrupt, "corrupt BMP: truncated"};
+  const uint8_t* pal = buf + 14 + hsize;
+  if (bits == 8) {
+    if (ncolors == 0) ncolors = 256;
+    if (14 + hsize + 4 * size_t(ncolors) > len)
+      return {kCorrupt, "corrupt BMP: palette"};
+  }
+  if (mode == kGray || mode == kAnyDepth)
+    return {kUnsupported, "unsupported: a BMP read as a grey image"};
+  img->w = W;
+  img->h = H;
+  img->c = 3;
+  img->bytes = 1;
+  img->data.resize(size_t(W) * H * 3);
+  for (int y = 0; y < H; ++y) {
+    const uint8_t* r = buf + data_off + stride * (bottom_up ? H - 1 - y : y);
+    for (int x = 0; x < W; ++x) {
+      const uint8_t* bgr;
+      if (bits == 8) {
+        if (r[x] >= ncolors) return {kCorrupt, "corrupt BMP: palette index"};
+        bgr = pal + 4 * r[x];
+      } else {
+        bgr = r + size_t(x) * (bits / 8);
+      }
+      uint8_t* o = &img->data[(size_t(y) * W + x) * 3];
+      o[0] = bgr[2];
+      o[1] = bgr[1];
+      o[2] = bgr[0];
+    }
+  }
+  return {kOk, ""};
+}
+
+// ----------------------------------------------------------------------------
+bool read_file(const char* path, std::vector<uint8_t>* out) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return false;
+  bool ok = fseek(f, 0, SEEK_END) == 0;
+  long len = ok ? ftell(f) : -1;
+  ok = ok && len > 0 && fseek(f, 0, SEEK_SET) == 0;
+  if (ok) {
+    out->resize(size_t(len));
+    ok = fread(out->data(), 1, size_t(len), f) == size_t(len);
+  }
+  fclose(f);
+  return ok;
+}
+
+Failure decode_file(const char* path, int mode, Image* img) {
+  std::vector<uint8_t> buf;
+  if (!read_file(path, &buf)) return {kNoFile, "cannot read the file"};
+  if (buf.size() >= 8 && buf[0] == 137 && buf[1] == 'P')
+    return decode_png(buf.data(), buf.size(), mode, img);
+  if (buf.size() >= 2 && buf[0] == 'B' && buf[1] == 'M')
+    return decode_bmp(buf.data(), buf.size(), mode, img);
+  return {kUnknown, "not a PNG or BMP file"};
+}
+
+// --------------------------------------------------- resize + normalize ----
+// bilinear, half-pixel centres, edge-clamped (the JAX loader's arithmetic)
+void resize_normalize(const uint8_t* src, int h, int w, float* out, int oh,
+                      int ow, int mode, const float* mean,
+                      const float* stddev) {
+  const float sy = float(h) / oh;
+  const float sx = float(w) / ow;
+  for (int y = 0; y < oh; ++y) {
+    float fy = (y + 0.5f) * sy - 0.5f;
+    int y0 = (int)floorf(fy);
+    float wy = fy - y0;
+    int y0c = y0 < 0 ? 0 : (y0 >= h ? h - 1 : y0);
+    int y1c = y0 + 1 < 0 ? 0 : (y0 + 1 >= h ? h - 1 : y0 + 1);
+    for (int x = 0; x < ow; ++x) {
+      float fx = (x + 0.5f) * sx - 0.5f;
+      int x0 = (int)floorf(fx);
+      float wx = fx - x0;
+      int x0c = x0 < 0 ? 0 : (x0 >= w ? w - 1 : x0);
+      int x1c = x0 + 1 < 0 ? 0 : (x0 + 1 >= w ? w - 1 : x0 + 1);
+      const uint8_t* p00 = src + (size_t(y0c) * w + x0c) * 3;
+      const uint8_t* p01 = src + (size_t(y0c) * w + x1c) * 3;
+      const uint8_t* p10 = src + (size_t(y1c) * w + x0c) * 3;
+      const uint8_t* p11 = src + (size_t(y1c) * w + x1c) * 3;
+      float* o = out + (size_t(y) * ow + x) * 3;
+      for (int c = 0; c < 3; ++c) {
+        float v = (1 - wy) * ((1 - wx) * p00[c] + wx * p01[c]) +
+                  wy * ((1 - wx) * p10[c] + wx * p11[c]);
+        if (mode == 1) {
+          v /= 255.f;
+        } else if (mode == 2) {
+          v = (v / 255.f - mean[c]) / stddev[c];
+        }
+        o[c] = v;
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ fillPoly ----
+// cv2.fillPoly of OpenCV 5 (shift 0, LINE_8), found equal to it on random
+// polygons inside and across the image border: each edge drawn by the
+// 8-connected line iterator (clipped to the image), then a scanline fill
+// between 16.16 fixed-point edges, which run between the clipped ends of an
+// edge that leaves the image; a row fills from the ceiling of its left edge
+// to the floor of its right one.
+const int XY_SHIFT = 16;
+const int64_t XY_ONE = int64_t(1) << XY_SHIFT;
+
+struct Pt {
+  int64_t x, y;
+};
+
+bool clip_line(int64_t w, int64_t h, Pt& p1, Pt& p2) {
+  int64_t right = w - 1, bottom = h - 1;
+  if (w <= 0 || h <= 0) return false;
+  int64_t &x1 = p1.x, &y1 = p1.y, &x2 = p2.x, &y2 = p2.y;
+  int c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8;
+  int c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8;
+  if ((c1 & c2) == 0 && (c1 | c2) != 0) {
+    int64_t a;
+    if (c1 & 12) {
+      a = c1 < 8 ? 0 : bottom;
+      x1 += (int64_t)((double)(a - y1) * (x2 - x1) / (y2 - y1));
+      y1 = a;
+      c1 = (x1 < 0) + (x1 > right) * 2;
+    }
+    if (c2 & 12) {
+      a = c2 < 8 ? 0 : bottom;
+      x2 += (int64_t)((double)(a - y2) * (x2 - x1) / (y2 - y1));
+      y2 = a;
+      c2 = (x2 < 0) + (x2 > right) * 2;
+    }
+    if ((c1 & c2) == 0 && (c1 | c2) != 0) {
+      if (c1) {
+        a = c1 == 1 ? 0 : right;
+        y1 += (int64_t)((double)(a - x1) * (y2 - y1) / (x2 - x1));
+        x1 = a;
+        c1 = 0;
+      }
+      if (c2) {
+        a = c2 == 1 ? 0 : right;
+        y2 += (int64_t)((double)(a - x2) * (y2 - y1) / (x2 - x1));
+        x2 = a;
+        c2 = 0;
+      }
+    }
+  }
+  return (c1 | c2) == 0;
+}
+
+void draw_line(uint8_t* img, int w, int h, Pt p1, Pt p2) {
+  if ((uint64_t)p1.x >= (uint64_t)w || (uint64_t)p2.x >= (uint64_t)w ||
+      (uint64_t)p1.y >= (uint64_t)h || (uint64_t)p2.y >= (uint64_t)h) {
+    if (!clip_line(w, h, p1, p2)) return;
+  }
+  int64_t dx = p2.x - p1.x, dy = p2.y - p1.y;
+  int64_t sx = 1, sy = 1;
+  if (dx < 0) {  // left to right
+    dx = -dx;
+    dy = -dy;
+    std::swap(p1, p2);
+  }
+  if (dy < 0) {
+    dy = -dy;
+    sy = -1;
+  }
+  bool vert = dy > dx;
+  if (vert) {
+    std::swap(dx, dy);
+    std::swap(sx, sy);
+  }
+  int64_t err = dx - (dy + dy), plus_delta = dx + dx, minus_delta = -(dy + dy);
+  // minus: step along the major axis; plus: also along the minor one
+  int64_t minus_x = sx, minus_y = 0, plus_x = 0, plus_y = sy;
+  if (vert) {
+    std::swap(minus_x, minus_y);
+    std::swap(plus_x, plus_y);
+  }
+  int64_t x = p1.x, y = p1.y;
+  for (int64_t i = 0; i <= dx; ++i) {
+    img[size_t(y) * w + x] = 1;
+    int64_t mask = err < 0 ? -1 : 0;
+    err += minus_delta + (plus_delta & mask);
+    x += minus_x + (plus_x & mask);
+    y += minus_y + (plus_y & mask);
+  }
+}
+
+struct Edge {
+  int y0, y1;
+  int64_t x, dx;
+  Edge* next;
+};
+
+void fill_poly(uint8_t* img, int w, int h, const int* xy, int n) {
+  if (n <= 0) return;
+  std::vector<Edge> edges;
+  edges.reserve(n + 1);
+  Pt pt0{int64_t(xy[2 * (n - 1)]) << XY_SHIFT, xy[2 * (n - 1) + 1]};
+  for (int i = 0; i < n; ++i) {
+    Pt pt1{int64_t(xy[2 * i]) << XY_SHIFT, xy[2 * i + 1]};
+    Pt pt0c = pt0, pt1c = pt1;
+    Pt t0{(pt0.x + (XY_ONE >> 1)) >> XY_SHIFT, pt0.y};
+    Pt t1{(pt1.x + (XY_ONE >> 1)) >> XY_SHIFT, pt1.y};
+    draw_line(img, w, h, t0, t1);
+    // an edge that leaves the image runs between its clipped ends
+    if ((uint64_t)t0.x >= (uint64_t)w || (uint64_t)t1.x >= (uint64_t)w ||
+        (uint64_t)t0.y >= (uint64_t)h || (uint64_t)t1.y >= (uint64_t)h) {
+      clip_line(w, h, t0, t1);
+      pt0c.y = t0.y;
+      pt1c.y = t1.y;
+      pt0c.x = t0.x << XY_SHIFT;
+      pt1c.x = t1.x << XY_SHIFT;
+    }
+    if (pt0.y != pt1.y) {
+      Edge e{};
+      e.dx = pt1c.y == pt0c.y ? 0 : (pt1c.x - pt0c.x) / (pt1c.y - pt0c.y);
+      if (pt0.y < pt1.y) {
+        e.y0 = int(pt0.y);
+        e.y1 = int(pt1.y);
+        e.x = pt0c.x + (pt0.y - pt0c.y) * e.dx;
+      } else {
+        e.y0 = int(pt1.y);
+        e.y1 = int(pt0.y);
+        e.x = pt1c.x + (pt1.y - pt1c.y) * e.dx;
+      }
+      edges.push_back(e);
+    }
+    pt0 = pt1;
+  }
+  // FillEdgeCollection
+  int total = int(edges.size());
+  if (total < 2) return;
+  int y_max = INT_MIN, y_min = INT_MAX;
+  int64_t x_max = INT64_MIN, x_min = INT64_MAX;
+  for (auto& e : edges) {
+    int64_t x1 = e.x + int64_t(e.y1 - e.y0) * e.dx;
+    y_min = std::min(y_min, e.y0);
+    y_max = std::max(y_max, e.y1);
+    x_min = std::min({x_min, e.x, x1});
+    x_max = std::max({x_max, e.x, x1});
+  }
+  if (y_max < 0 || y_min >= h || x_max < 0 || x_min >= (int64_t(w) << XY_SHIFT))
+    return;
+  std::sort(edges.begin(), edges.end(), [](const Edge& a, const Edge& b) {
+    return a.y0 != b.y0 ? a.y0 < b.y0 : a.x != b.x ? a.x < b.x : a.dx < b.dx;
+  });
+  Edge tmp{};
+  tmp.y0 = INT_MAX;
+  edges.push_back(tmp);
+  tmp.next = nullptr;
+  int i = 0;
+  Edge* e = &edges[0];
+  y_max = std::min(y_max, h);
+  for (int y = e->y0; y < y_max; ++y) {
+    Edge *last, *prelast, *keep_prelast;
+    int draw = 0;
+    bool clipline = y < 0;
+    prelast = &tmp;
+    last = tmp.next;
+    while (last || e->y0 == y) {
+      if (last && last->y1 == y) {
+        prelast->next = last->next;
+        last = last->next;
+        continue;
+      }
+      keep_prelast = prelast;
+      if (last && (e->y0 > y || last->x < e->x)) {
+        prelast = last;
+        last = last->next;
+      } else if (i < total) {
+        prelast->next = e;
+        e->next = last;
+        prelast = e;
+        e = &edges[++i];
+      } else {
+        break;
+      }
+      if (draw) {
+        if (!clipline) {
+          int x1, x2;
+          // the pixels whose left side lies between the two edges
+          if (keep_prelast->x > prelast->x) {
+            x1 = int((prelast->x + XY_ONE - 1) >> XY_SHIFT);
+            x2 = int(keep_prelast->x >> XY_SHIFT);
+          } else {
+            x1 = int((keep_prelast->x + XY_ONE - 1) >> XY_SHIFT);
+            x2 = int(prelast->x >> XY_SHIFT);
+          }
+          if (x1 < w && x2 >= 0) {
+            if (x1 < 0) x1 = 0;
+            if (x2 >= w) x2 = w - 1;
+            if (x2 >= x1) memset(img + size_t(y) * w + x1, 1, x2 - x1 + 1);
+          }
+        }
+        keep_prelast->x += keep_prelast->dx;
+        prelast->x += prelast->dx;
+      }
+      draw ^= 1;
+    }
+    // bubble sort of the active edges by x
+    keep_prelast = nullptr;
+    do {
+      prelast = &tmp;
+      last = tmp.next;
+      Edge* last_exchange = nullptr;
+      while (last != keep_prelast && last->next != nullptr) {
+        Edge* te = last->next;
+        if (last->x > te->x) {
+          prelast->next = te;
+          last->next = te->next;
+          te->next = last;
+          prelast = te;
+          last_exchange = prelast;
+        } else {
+          prelast = last;
+          last = te;
+        }
+      }
+      if (last_exchange == nullptr) break;
+      keep_prelast = last_exchange;
+    } while (keep_prelast != tmp.next && keep_prelast != &tmp);
+  }
+}
+
+void set_error(char* err, int errlen, const std::string& msg) {
+  if (err && errlen > 0) {
+    snprintf(err, size_t(errlen), "%s", msg.c_str());
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int alo_decode(const char* path, int mode, int* h, int* w, int* c,
+               int* bytes_per_sample, void** data, char* err, int errlen) {
+  Image img;
+  Failure f = decode_file(path, mode, &img);
+  *data = nullptr;
+  if (f.code != kOk) {
+    set_error(err, errlen, f.msg);
+    return f.code;
+  }
+  *h = img.h;
+  *w = img.w;
+  *c = img.c;
+  *bytes_per_sample = img.bytes;
+  void* out = malloc(img.data.size());
+  if (!out) {
+    set_error(err, errlen, "out of memory");
+    return kCorrupt;
+  }
+  memcpy(out, img.data.data(), img.data.size());
+  *data = out;
+  return kOk;
+}
+
+void alo_free(void* p) { free(p); }
+
+// Bilinear resize + normalize of an (h, w, 3) uint8 RGB image into (oh, ow,
+// 3) float32.
+void alo_resize_normalize(const uint8_t* src, int h, int w, float* out,
+                          int oh, int ow, int mode, const float* mean,
+                          const float* stddev) {
+  resize_normalize(src, h, w, out, oh, ow, mode, mean, stddev);
+}
+
+// Set the pixels of the polygon xy (n integer vertices, x then y) to 1 in
+// an (h, w) uint8 mask.
+void alo_fill_poly(uint8_t* mask, int h, int w, const int* xy, int n) {
+  fill_poly(mask, w, h, xy, n);
+}
+
+}  // extern "C"

@@ -1,0 +1,253 @@
+"""Image decoding and the batch loader (counterpart of
+``aloception_tpu/runtime/loader.py``, which binds a libjpeg + libpng build).
+
+JPEG and WebP are decoded by Pillow, whose libjpeg-turbo and libwebp give
+``cv2.imread``'s pixels (the integer IDCT and the same upsampling); PNG and
+BMP by ``aloloader.cpp``, through ctypes, since Pillow reduces 16-bit colour
+PNGs to 8 bits. The library is built at its first use in a process, with
+the host C++ compiler that ``export.base_exporter.host_compiler`` picks (the
+card machine's ``$CXX`` is a partial toolchain), into
+``aloception_tpu_torch/_build/libaloloader_<hash>.so``, where ``<hash>`` is
+taken from the source and the flags: an edited source is rebuilt, an
+unchanged one is loaded as it is. It links zlib only. A failed build raises
+with the compiler's message; nothing falls back to another decoder.
+
+Pillow's decoders and ctypes release the interpreter lock while they run,
+so threads that decode (the datasets' prefetch workers, the batch loader's
+pool) run in parallel.
+
+- ``decode(path, mode)``: one image at its native size, as a uint8 or
+  uint16 (H, W, C) tensor, with ``cv2.imread``'s semantics for the mode
+  ("color": RGB; "gray"; "anydepth": grey at the stored depth;
+  "unchanged"), a JPEG's EXIF orientation applied (except "unchanged"); an
+  unreadable or unsupported file raises ``InvalidSampleError`` with the
+  reason (a truncated JPEG too, which cv2 returns with grey rows).
+- ``NativeImageLoader``: threaded decode + bilinear resize + normalize of
+  batches (the JAX loader's arithmetic), into one float32 NHWC tensor.
+- ``fill_poly``: ``cv2.fillPoly(mask, [xy], 1)`` on a uint8 mask.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+from PIL import Image
+
+from ..aloscene.io.errors import InvalidSampleError
+
+_SRC = Path(__file__).resolve().with_name("aloloader.cpp")
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
+LINK = ("-lz",)
+
+RESNET_MEAN = (0.485, 0.456, 0.406)
+RESNET_STD = (0.229, 0.224, 0.225)
+MODES = {"color": 0, "gray": 1, "anydepth": 2, "unchanged": 3}
+STATUS = {1: "cannot read the file", 2: "unknown format", 3: "corrupt",
+          4: "unsupported"}
+
+_INT = ctypes.POINTER(ctypes.c_int)
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(_SRC.read_bytes()
+                            + " ".join(CXX_FLAGS + LINK).encode()
+                            ).hexdigest()[:16]
+    return BUILD_DIR / f"libaloloader_{digest}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build ``aloloader.cpp`` if its library is missing, then load it and
+    declare its functions. Raises ``RuntimeError`` with the compiler's
+    output if the build fails."""
+    out = library_path()
+    if not out.exists():
+        from ..export.base_exporter import host_compiler
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [host_compiler(), *CXX_FLAGS, str(_SRC), *LINK, "-o", str(tmp)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"building aloloader.cpp failed (exit "
+                               f"{res.returncode}): {' '.join(cmd)}\n"
+                               f"{res.stderr}")
+        os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
+    lib = ctypes.CDLL(str(out))
+    lib.alo_decode.restype = ctypes.c_int
+    lib.alo_decode.argtypes = [ctypes.c_char_p, ctypes.c_int, _INT, _INT, _INT,
+                               _INT, ctypes.POINTER(ctypes.c_void_p),
+                               ctypes.c_char_p, ctypes.c_int]
+    lib.alo_free.restype = None
+    lib.alo_free.argtypes = [ctypes.c_void_p]
+    lib.alo_resize_normalize.restype = None
+    lib.alo_resize_normalize.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]
+    lib.alo_fill_poly.restype = None
+    lib.alo_fill_poly.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p, ctypes.c_int]
+    return lib
+
+
+def _orient(img: torch.Tensor, orientation: int) -> torch.Tensor:
+    """EXIF orientation 1-8 -> the upright (H, W, C) image, as cv2.imread
+    turns it: transpose for 5-8, then flips."""
+    if orientation >= 5:
+        img = img.transpose(0, 1)
+    if orientation in (2, 3, 6, 7):
+        img = img.flip(1)
+    if orientation in (3, 4, 7, 8):
+        img = img.flip(0)
+    return img.contiguous()
+
+
+def _format(path: str) -> str:
+    """"JPEG", "WebP" or "native" (the rest: PNG, BMP, or refused by the
+    native decoder) by the file's first bytes."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(12)
+    except OSError:
+        return "native"           # the native decoder names the reason
+    if head[:3] == b"\xff\xd8\xff":
+        return "JPEG"
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return "WebP"
+    return "native"
+
+
+def _decode_pillow(path: str, mode: str, fmt: str) -> torch.Tensor:
+    """A JPEG (8-bit grey or YCbCr) or WebP as ``cv2.imread`` gives it. A
+    JPEG's "gray" comes from libjpeg's own grey output, as cv2's does; a
+    colour WebP is not turned grey (cv2's conversion is not Pillow's)."""
+    def refuse(why):
+        return InvalidSampleError(f"image decoder: cannot read {path}: {why}")
+    try:
+        with Image.open(path) as im:
+            if im.format != fmt.upper():
+                raise refuse(f"unknown format: {im.format}")
+            if fmt == "JPEG" and im.mode not in ("L", "RGB"):
+                raise refuse(f"unsupported: a JPEG in mode {im.mode}")
+            grey = mode in ("gray", "anydepth")
+            if grey and fmt == "JPEG":
+                im.draft("L", im.size)
+            orientation = 1
+            if fmt == "JPEG" and mode != "unchanged":
+                orientation = int(im.getexif().get(0x0112, 1))
+            im.load()
+            if grey and im.mode != "L":
+                raise refuse(f"unsupported: grey of a colour {fmt}")
+            if mode == "color" and im.mode != "RGB":
+                im = im.convert("RGB")
+            arr = np.array(im)
+    except InvalidSampleError:
+        raise
+    except Exception as e:      # Pillow's errors: OSError, SyntaxError, ...
+        raise refuse(f"corrupt {fmt}: {e}") from e
+    img = torch.from_numpy(arr if arr.ndim == 3 else arr[..., None])
+    return img if orientation == 1 else _orient(img, orientation)
+
+
+def decode(path: str, mode: str = "color") -> torch.Tensor:
+    """Decode ``path`` (JPEG, WebP, PNG or BMP) at its native size -> (H, W,
+    C) uint8, or uint16 for a 16-bit PNG in "anydepth"/"unchanged" mode, on
+    the CPU."""
+    fmt = _format(path)
+    if fmt != "native":
+        return _decode_pillow(path, mode, fmt)
+    lib = load_library()
+    h, w, c, nbytes = (ctypes.c_int() for _ in range(4))
+    data = ctypes.c_void_p()
+    err = ctypes.create_string_buffer(256)
+    rc = lib.alo_decode(os.fsencode(path), MODES[mode], h, w, c, nbytes,
+                        ctypes.byref(data), err, len(err))
+    if rc != 0:
+        raise InvalidSampleError(
+            f"image decoder: cannot read {path}: {STATUS.get(rc, rc)}: "
+            f"{err.value.decode(errors='replace')}")
+    try:
+        n = h.value * w.value * c.value
+        dtype = np.uint8 if nbytes.value == 1 else np.uint16
+        arr = np.ctypeslib.as_array(
+            ctypes.cast(data, ctypes.POINTER(ctypes.c_uint8)),
+            (n * nbytes.value,)).view(dtype).reshape(h.value, w.value,
+                                                    c.value)
+        return torch.from_numpy(arr.copy())
+    finally:
+        lib.alo_free(data)
+
+
+def fill_poly(mask: np.ndarray, xy: np.ndarray) -> np.ndarray:
+    """Set the pixels of the polygon ``xy`` ((N, 2) integer x, y) to 1 in
+    the C-contiguous (H, W) uint8 ``mask``, in place, as ``cv2.fillPoly``
+    does (8-connected edges, integer vertices); returns ``mask``."""
+    if mask.dtype != np.uint8 or mask.ndim != 2 or \
+            not mask.flags["C_CONTIGUOUS"]:
+        raise ValueError("fill_poly needs a C-contiguous (H, W) uint8 mask")
+    pts = np.ascontiguousarray(xy, np.int32).reshape(-1, 2)
+    load_library().alo_fill_poly(mask.ctypes.data, mask.shape[0],
+                                 mask.shape[1], pts.ctypes.data, len(pts))
+    return mask
+
+
+class NativeImageLoader:
+    """Threaded decode + resize + normalize of image batches (the JAX
+    ``NativeImageLoader``'s arithmetic, in native code: bilinear with
+    half-pixel centres, edge-clamped). ``mode``: "raw" (0..255), "01", or
+    "resnet" ((x/255 - mean) / std)."""
+
+    MODES = {"raw": 0, "01": 1, "resnet": 2}
+
+    def __init__(self, size: Tuple[int, int], mode: str = "resnet",
+                 mean=RESNET_MEAN, std=RESNET_STD, n_threads: int = 8):
+        self.lib = load_library()
+        self.size = tuple(size)
+        self.mode = self.MODES[mode]
+        self.mean = np.ascontiguousarray(mean, np.float32)
+        self.std = np.ascontiguousarray(std, np.float32)
+        self.n_threads = n_threads
+
+    def _load_into(self, path: str, out: torch.Tensor):
+        img = decode(path, "color").contiguous()
+        h, w = self.size
+        self.lib.alo_resize_normalize(
+            img.data_ptr(), img.shape[0], img.shape[1], out.data_ptr(), h, w,
+            self.mode, self.mean.ctypes.data, self.std.ctypes.data)
+
+    def load_batch(self, paths: Sequence[str]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """paths -> ((N, H, W, 3) float32 NHWC, (N,) bool ok-mask); a file
+        that does not decode is left as zeros and marked False."""
+        n = len(paths)
+        h, w = self.size
+        out = torch.zeros((n, h, w, 3), dtype=torch.float32)
+
+        def one(i):
+            try:
+                self._load_into(paths[i], out[i])
+                return True
+            except InvalidSampleError:
+                out[i].zero_()
+                return False
+        with ThreadPoolExecutor(max(1, min(self.n_threads, n))) as pool:
+            ok = list(pool.map(one, range(n)))
+        return out, torch.tensor(ok, dtype=torch.bool)
+
+    def load(self, path: str) -> torch.Tensor:
+        """One image; a file that does not decode raises
+        ``InvalidSampleError`` with the decoder's reason."""
+        out = torch.zeros((*self.size, 3), dtype=torch.float32)
+        self._load_into(path, out)
+        return out

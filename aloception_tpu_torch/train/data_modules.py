@@ -2,13 +2,20 @@
 ``aloception_tpu/train/data_modules.py``): ``CocoDetection2Detr`` for the
 detectors and the panoptic head, ``Data2RAFT`` for RAFT.
 
-Fixed-size training only: every frame is flipped with p = 0.5, resized with
-its aspect ratio to a shorter side drawn from ``scales``, then resized to
-``size``, and normalised for the ResNet. The reference's multi-scale
-geometry (``size=None``) and COCO on disk wait in ROADMAP A10. With
-``return_masks`` the frames carry their objects' ``segmentation`` Masks,
-which flip and resize (bilinearly, so a resized mask is soft) with them;
-a batch keeps them as a per-frame list.
+``size=None`` is the reference's multi-scale geometry: each frame is flipped
+with p = 0.5, then either resized with its aspect ratio to a shorter side
+drawn from ``REFERENCE_SCALES`` (longer side at most 1333), or resized to a
+shorter side of 400/500/600, cropped to a random 384-600 square-ish region
+and resized as before; validation takes a shorter side of 800. A batch is
+padded to the smallest of ``MULTISCALE_BUCKETS`` that holds it. With a fixed
+``size`` (H, W): flip, resize with the aspect ratio to a shorter side drawn
+from ``scales``, resize to ``size``. Frames are normalised for the ResNet.
+``sample=True`` reads the synthetic COCO sample; without it, COCO on disk
+(``CocoDetectionDataset``, whose ``dataset_dir=`` and other arguments pass
+through ``dataset_kwargs``), its frames made by ``num_workers`` threads.
+With ``return_masks`` the frames carry their objects' ``segmentation``
+Masks, which flip, crop and resize (bilinearly, so a resized mask is soft)
+with them; a batch keeps them as a per-frame list.
 
 ``Data2RAFT`` reads the offline synthetic FlyingChairs2 and Sintel samples;
 FlyingThings3D, ChairsSDHom and the datasets on disk wait in ROADMAP A10.
@@ -21,10 +28,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from .. import aloscene
-from ..alodataset import (CocoBaseDataset, FlyingChairs2Dataset,
-                          SintelFlowDataset)
+from ..alodataset import (CocoBaseDataset, CocoDetectionDataset,
+                          FlyingChairs2Dataset, SintelFlowDataset, Split)
 from ..alodataset import transforms as T
 from ..models.detr.criterion import targets_from_frames
+
+# the reference's multi-scale shorter sides (data2detr.py)
+REFERENCE_SCALES = [480, 512, 544, 576, 608, 640, 672, 704, 736, 768, 800]
 
 # Canonical padded batch shapes of multi-scale training, (short, long),
 # multiples of 64, as in the JAX package: every shape its scales (shorter
@@ -49,55 +59,92 @@ def pick_bucket(max_h: int, max_w: int,
 
 
 class CocoDetection2Detr:
-    """COCO -> DETR batches at a fixed ``size`` (H, W). ``seed`` seeds the
-    transforms' generator and the loaders' shuffle."""
+    """COCO -> DETR batches, at the multi-scale geometry (``size=None``) or
+    a fixed ``size`` (H, W). ``seed`` seeds the loaders' shuffle and the
+    transforms: each sample draws from a generator of (seed, epoch, index)
+    with a copy of the transforms of its own, so the batches do not depend
+    on the worker threads."""
 
-    def __init__(self, batch_size: int = 2, sample: bool = False,
+    def __init__(self, batch_size: int = 2, num_workers: int = 2,
+                 train_on_val: bool = False, sample: bool = False,
                  size: Optional[Tuple[int, int]] = (480, 640),
                  scales: Optional[Sequence[int]] = None,
-                 max_targets: int = 100, seed: int = 0,
-                 return_masks: bool = False):
-        if size is None:
-            raise NotImplementedError(
-                "multi-scale training (size=None) is not ported yet (ROADMAP "
-                "A10); pass a fixed size")
-        if not sample:
-            raise NotImplementedError(
-                "COCO on disk is not ported yet (ROADMAP A10); pass "
-                "sample=True")
+                 max_targets: int = 100,
+                 classes: Optional[List[str]] = None, seed: int = 0,
+                 return_masks: bool = False, **dataset_kwargs):
         self.batch_size = batch_size
-        self.size = tuple(size)
+        self.num_workers = num_workers
+        self.size = None if size is None else tuple(size)
         self.max_targets = max_targets
         self.seed = seed
-        self.generator = torch.Generator().manual_seed(seed)
-        scales = list(scales or (392, 416, 448, 480))
-        train = T.Compose([
-            T.RandomHorizontalFlip(0.5, generator=self.generator),
-            T.RandomResizeWithAspectRatio(scales, int(self.size[1] * 1.2),
-                                          generator=self.generator),
-            T.Resize(self.size)])
-        val = T.Resize(self.size)
-        self.train_dataset = CocoBaseDataset(
-            sample=True, transform_fn=lambda f: train(f).norm_resnet(),
-            return_masks=return_masks)
-        self.val_dataset = CocoBaseDataset(
-            sample=True, transform_fn=lambda f: val(f).norm_resnet(),
-            return_masks=return_masks)
+        # the trees' generator: a sample's copy draws from one of its own
+        g = torch.Generator().manual_seed(seed)
+        if size is None:
+            scales = list(scales or REFERENCE_SCALES)
+            max_size = 1333
+            train = T.Compose([
+                T.RandomHorizontalFlip(0.5, generator=g),
+                T.RandomSelect(
+                    T.RandomResizeWithAspectRatio(scales, max_size=max_size,
+                                                  generator=g),
+                    T.Compose([
+                        T.RandomResizeWithAspectRatio([400, 500, 600],
+                                                      generator=g),
+                        T.RandomSizeCrop(384, 600, generator=g),
+                        T.RandomResizeWithAspectRatio(scales,
+                                                      max_size=max_size,
+                                                      generator=g),
+                    ], generator=g), generator=g),
+            ], generator=g)
+            val = T.RandomResizeWithAspectRatio([scales[-1]],
+                                                max_size=max_size,
+                                                generator=g)
+        else:
+            scales = list(scales or (392, 416, 448, 480))
+            train = T.Compose([
+                T.RandomHorizontalFlip(0.5, generator=g),
+                T.RandomResizeWithAspectRatio(
+                    scales, max_size=int(self.size[1] * 1.2), generator=g),
+                T.Resize(self.size, generator=g)], generator=g)
+            val = T.Resize(self.size, generator=g)
+        self.train_transform, self.val_transform = train, val
+
+        def make(split, tfn):
+            def transform_fn(frame, generator):
+                return tfn.with_generator(generator)(frame).norm_resnet()
+            if sample:
+                return CocoBaseDataset(
+                    sample=True, transform_fn=transform_fn,
+                    transform_seed=seed, return_masks=return_masks)
+            return CocoDetectionDataset(
+                split=split, classes=classes, return_masks=return_masks,
+                transform_fn=transform_fn, transform_seed=seed,
+                **dataset_kwargs)
+
+        self.train_dataset = make(
+            Split.VAL if train_on_val else Split.TRAIN, train)
+        self.val_dataset = make(Split.VAL, val)
         self.label_names = self.train_dataset.labels_names
 
     def train_dataloader(self):
-        return self.train_dataset.train_loader(batch_size=self.batch_size,
-                                               seed=self.seed)
+        return self.train_dataset.train_loader(
+            batch_size=self.batch_size, num_workers=self.num_workers,
+            seed=self.seed)
 
     def val_dataloader(self):
-        return self.val_dataset.train_loader(batch_size=self.batch_size,
-                                             shuffle=False)
+        return self.val_dataset.train_loader(
+            batch_size=self.batch_size, num_workers=self.num_workers,
+            shuffle=False)
 
     def prepare_batch(self, frames_list: List, training: bool = True) -> Dict:
         """list[Frame] -> {"inputs": (images (B, H, W, 3), mask (B, H, W),
         1 = padded), "targets": padded target tensors, "frames": the batch},
-        all on the CPU."""
-        batched = aloscene.batch_list(frames_list, size=self.size)
+        all on the CPU. Multi-scale batches are padded to their bucket."""
+        size = self.size
+        if size is None:
+            size = pick_bucket(max(f.H for f in frames_list),
+                               max(f.W for f in frames_list))
+        batched = aloscene.batch_list(frames_list, size=size)
         images = batched.as_layout(("B", "H", "W", "C")).float().contiguous()
         mask = batched.mask.array[:, 0].float().contiguous()
         targets = targets_from_frames(batched, max_targets=self.max_targets)

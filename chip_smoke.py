@@ -52,7 +52,9 @@
    its bound.
 7. The training gate: one float32 Deformable-DETR-R50-refine train step at
    batch 2, 640x640, dropout 0, with the MSDA kernel forward against the
-   plain forward (losses, every gradient, the matched queries).
+   plain forward (losses, the matched queries, every gradient: the
+   sampling offsets' by their L2 gap), and against a plain step carrying
+   the kernel's MSDA values (every gradient, 1e-5).
 8. The training main path: Deformable-DETR-R50-refine (91 classes, float32,
    dropout 0.1) trains through ``make_deformable_detr_trainer(...).fit`` on
    the synthetic sample at batch 8, 640x640 (each batch's frames made and
@@ -147,6 +149,26 @@
     at 500 x 200 (ms a call by CUDA events, device-busy ms and activities
     from a trace, the CPU's ms); ``DepthMetrics`` over 4 375x1242 pairs
     (1e-9 relative); the golden ``.flo`` and ``.pfm`` read exactly.
+19. COCO on disk and the multi-scale recipe (``coco_disk_phase``): the
+    port's decoders (Pillow for JPEG, the native loader built from
+    ``aloception_tpu_torch/runtime/aloloader.cpp`` for PNG) decode every
+    image fixture of ``tests/fixtures/torch_coco``, held
+    bit-equal to the cv2 decode stored beside it, the corrupt one refused;
+    the MSDA kernel against the plain version at each of the six
+    ``MULTISCALE_BUCKETS``' level shapes (encoder Lq = Len_v and decoder Lq
+    = 300, B = 2, locations within a padded item's valid ratios, fp32 and
+    bf16, each plan printed) and the largest bucket's fp32 encoder call
+    timed beside its bound; a COCO-format directory of the fixtures (16
+    train, 200 val images, COCO's 80 category ids, polygons, a crowd RLE);
+    ``train_on_coco --model deformable --multiscale --batch_size 2
+    --max_steps 8`` (Deformable-DETR-R50-refine, float32): per step the
+    bucket, host ms, the workers' decode and transform ms, peak memory,
+    device-busy ms and idle share, 12 MSDA launches and backward passes and
+    one Hungarian launch; the loss on one repeated batch;
+    ``eval_on_coco --model deformable --multiscale`` on val2017 (AP,
+    images/s after the first batch at each padded size, those batches' ms
+    alone, data ms a batch); a ``FromDirectoryDataset`` request of the
+    fixture folder through the Frame path (12 launches).
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
@@ -157,6 +179,7 @@ imports JAX.
 import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -238,6 +261,11 @@ TRAIN_BATCH, TRAIN_SIZE = 8, (640, 640)
 TRAIN_STEPS = 6
 OVERFIT_STEPS = 10
 GATE_BATCH = 2
+# the train gate's gradient tolerances (train_gate_phase): two correct fp32
+# kernels read up to 3.4e-3 against the plain forward on 8 batches, faulty
+# forwards 0.14 or more; the kernel-valued replay 1.2-1.7e-6
+# (scripts/train_gate_probe.py on an H100)
+GATE_GRAD_TOL, GATE_OFFSETS_L2_TOL, GATE_REPLAY_TOL = 1e-2, 1e-2, 1e-5
 # DETR-R50 training, short: 8 batches of 16 at 384 x 384, accumulate 4
 DETR_TRAIN_BATCH, DETR_TRAIN_SIZE, DETR_TRAIN_BATCHES = 16, (384, 384), 8
 KERNEL_SOURCES = ("ms_deform_attn", "hungarian")
@@ -285,6 +313,17 @@ EXPORT_REQUEST_HW = ((360, 480), (427, 640), (600, 800), (256, 320))
 EXPORT_TIMED = 20
 TINY_EXPORT_HW, TINY_RAFT_ITERS = (64, 96), 2
 INT8_CONTRACT, CALIB_BATCHES, CALIB_BATCH = 0.05, 2, 2
+# COCO on disk and the multi-scale recipe: the image fixtures (decoded and
+# held against their stored cv2 decodes), a COCO-format directory of 16
+# train and 200 val images made from them, train_on_coco --multiscale at bs2
+# for 8 steps, the loss over steps on one repeated batch, eval_on_coco
+# --multiscale on val2017 and a FromDirectoryDataset request; the MSDA
+# kernel held against the plain version at each bucket's level shapes
+FIXTURE_DIR = "tests/fixtures/torch_coco"
+COCO_TRAIN_IMAGES, COCO_VAL_IMAGES = 16, 200
+MULTISCALE_BATCH, MULTISCALE_STEPS, MULTISCALE_OVERFIT = 2, 8, 16
+# valid ratios (H, W) of the two items of a padded bucket batch
+BUCKET_VALID = ((1.0, 1.0), (0.77, 0.6))
 PANOPTIC_INFERENCE = {
     "detr_r50_panoptic": dict(threshold=0.0,
                               background_class=PANOPTIC_CLASSES,
@@ -405,23 +444,26 @@ def _gate(got, want, dtype, tag):
     return err, tol
 
 
+def plan_of(value, shapes, loc, w):
+    """The launch plan the MSDA wrapper picks for these inputs."""
+    from aloception_tpu_torch.ops.cuda.ms_deform_attn_kernel import launch_plan
+    B, len_v, nH, Cv = value.shape
+    return launch_plan(B, loc.shape[1], nH, Cv, len(shapes), loc.shape[4],
+                       len_v, value.element_size(), value.data_ptr(),
+                       loc.data_ptr(), w.data_ptr())
+
+
+def brief(plan):
+    return (f"vec {plan.vec_bytes} B, split {plan.split}, "
+            f"{'unrolled (4, 4)' if plan.unrolled else 'runtime loop'}"
+            f"{', points shared' if plan.share_points else ''}")
+
+
 def kernel_phase(device):
     import dataclasses
     from aloception_tpu_torch.ops.cuda import ms_deform_attn_cuda
-    from aloception_tpu_torch.ops.cuda.ms_deform_attn_kernel import (
-        LaunchPlan, launch_plan)
+    from aloception_tpu_torch.ops.cuda.ms_deform_attn_kernel import LaunchPlan
     from aloception_tpu_torch.ops.ms_deform_attn import ms_deform_attn_torch
-
-    def plan_of(value, shapes, loc, w):
-        B, len_v, nH, Cv = value.shape
-        return launch_plan(B, loc.shape[1], nH, Cv, len(shapes), loc.shape[4],
-                           len_v, value.element_size(), value.data_ptr(),
-                           loc.data_ptr(), w.data_ptr())
-
-    def brief(plan):
-        return (f"vec {plan.vec_bytes} B, split {plan.split}, "
-                f"{'unrolled (4, 4)' if plan.unrolled else 'runtime loop'}"
-                f"{', points shared' if plan.share_points else ''}")
 
     errs = {}
     for name, (shapes, B, Lq, channels, loc_range) in KERNEL_CASES.items():
@@ -1095,28 +1137,20 @@ def _check_losses(per_batch, tag):
             raise AssertionError(f"{tag} batch {i}: non-finite {bad}")
 
 
-def train_gate_phase(device):
-    """One Deformable-DETR-R50-refine train step, float32, TF32 off, dropout
-    0, batch 2 at 640 x 640: the MSDA kernel forward (through the
-    operator's autograd) against the plain forward, same model and batch. Losses to
-    1e-4 relative, every parameter's gradient to 1e-3 of its largest
-    magnitude, the matched queries equal."""
-    from aloception_tpu_torch.models.deformable_detr import (
-        deformable_criterion, deformable_detr_r50)
+def gate_setup(device, seed=20):
+    """The train gate's Deformable-DETR-R50-refine (float32, dropout 0,
+    sampling that depends on the query, as in slice_phase) and one batch of
+    GATE_BATCH at TRAIN_SIZE from the data module's train transforms, drawn
+    by ``one_batch(..., seed)``, on the card."""
+    from aloception_tpu_torch.models.deformable_detr import deformable_detr_r50
     from aloception_tpu_torch.models.deformable_detr import ms_deform_attn \
         as msda_module
-    from aloception_tpu_torch.models.deformable_detr.criterion import (
-        focal_cost_matrix)
-    from aloception_tpu_torch.models.detr.matcher import match_outputs
-    from aloception_tpu_torch.ops.ms_deform_attn import ms_deform_attn_torch
     from aloception_tpu_torch.train import CocoDetection2Detr
-    from aloception_tpu_torch.train.step import to_float32
     from aloception_tpu_torch.train.trainer import to_device
 
     model = deformable_detr_r50(
         num_classes=91, with_box_refine=True, dropout=0.0, device=device,
         generator=torch.Generator(device=device).manual_seed(0)).train()
-    # sampling that depends on the query, as in slice_phase
     g = torch.Generator(device=device).manual_seed(2)
     with torch.no_grad():
         for mod in model.modules():
@@ -1125,56 +1159,146 @@ def train_gate_phase(device):
                 mod.attention_weights.weight.normal_(0.0, 0.1, generator=g)
     dm = CocoDetection2Detr(batch_size=GATE_BATCH, sample=True,
                             size=TRAIN_SIZE)
-    batch = dm.prepare_batch(one_batch(dm.train_dataset, GATE_BATCH, seed=20))
+    batch = dm.prepare_batch(one_batch(dm.train_dataset, GATE_BATCH,
+                                       seed=seed))
     images, mask = to_device(batch["inputs"], device)
-    targets = to_device(batch["targets"], device)
+    return model, images, mask, to_device(batch["targets"], device)
 
-    def step():
+
+def gate_step(model, images, mask, targets, msda=None):
+    """One train step's losses, every parameter's gradient and the matched
+    queries, its 12 MSDA calls made by ``msda`` (the model's own, the kernel
+    operator, without)."""
+    from aloception_tpu_torch.models.deformable_detr import (
+        deformable_criterion)
+    from aloception_tpu_torch.models.deformable_detr import ms_deform_attn \
+        as msda_module
+    from aloception_tpu_torch.models.deformable_detr.criterion import (
+        focal_cost_matrix)
+    from aloception_tpu_torch.models.detr.matcher import match_outputs
+    from aloception_tpu_torch.train.step import to_float32
+
+    with mock.patch.object(msda_module, "ms_deform_attn",
+                           msda or msda_module.ms_deform_attn):
         model.zero_grad(set_to_none=True)
         out = to_float32(model(images, mask))
         loss, metrics = deformable_criterion(out, targets)
         loss.backward()
-        matched = match_outputs([out] + out["aux_outputs"], targets,
-                                focal_cost_matrix)
-        grads = {n: p.grad.detach().clone()
-                 for n, p in model.named_parameters() if p.grad is not None}
-        return ({k: v.item() for k, v in metrics.items()}, grads,
-                torch.stack(matched))
+    matched = match_outputs([out] + out["aux_outputs"], targets,
+                            focal_cost_matrix)
+    grads = {n: p.grad.detach().clone()
+             for n, p in model.named_parameters() if p.grad is not None}
+    return ({k: v.item() for k, v in metrics.items()}, grads,
+            torch.stack(matched))
+
+
+def gate_grad_errors(got, want):
+    """A step's gradients against a reference step's, by kind of tensor:
+    ``dense``, over every tensor but the sampling offsets' (the
+    ``sampling_offsets`` Linear of each MSDA layer), the largest max|gap| /
+    max|g|; ``offsets``, over the sampling offsets', the largest
+    ||gap||_2 / ||g||_2 (``offsets_max``: their max|gap| / max|g|, not
+    held); ``all``, max|gap| / max|g| over every tensor. Each (error,
+    tensor)."""
+    if got.keys() != want.keys():
+        raise AssertionError("train gate: gradients of other parameters")
+    out = dict(dense=(0.0, None), offsets=(0.0, None),
+               offsets_max=(0.0, None), all=(0.0, None))
+
+    def ratio(gap, ref):
+        return gap / ref if ref else (0.0 if gap == 0 else float("inf"))
+    for n, ref in want.items():
+        gap = got[n] - ref
+        errs = {"all": ratio(gap.abs().max().item(), ref.abs().max().item())}
+        if "sampling_offsets" in n:
+            errs["offsets"] = ratio(gap.norm().item(), ref.norm().item())
+            errs["offsets_max"] = errs["all"]
+        else:
+            errs["dense"] = errs["all"]
+        for k, e in errs.items():
+            if e > out[k][0]:
+                out[k] = (e, n)
+    return out
+
+
+def train_gate_phase(device, seed=20):
+    """One Deformable-DETR-R50-refine train step, float32, TF32 off, dropout
+    0, batch 2 at 640 x 640: the MSDA kernel forward (through the
+    operator's autograd) against the plain forward, same model and batch:
+    losses to 1e-4 relative, the matched queries equal; every gradient but
+    the sampling offsets' to GATE_GRAD_TOL of its max|g|, and the sampling
+    offsets' by their L2 gap, to GATE_OFFSETS_L2_TOL of their norm: a
+    sampling point that fp32 rounding moves across a cell border changes
+    its location gradient by O(1), so two correct fp32 forwards give
+    sampling-offset gradients up to ~1e-2 of max|g| apart at single
+    entries, and the other tensors up to ~3e-3 through them
+    (``scripts/train_gate_probe.py`` reads both measures on 8 batches and
+    on faulty forwards). Then the kernel step against a plain
+    step whose MSDA calls carry the kernel step's values through the plain
+    version's autograd graph (the backward wiring alone): every gradient to
+    GATE_REPLAY_TOL of its max|g|."""
+    from aloception_tpu_torch.models.deformable_detr import ms_deform_attn \
+        as msda_module
+    from aloception_tpu_torch.ops.ms_deform_attn import ms_deform_attn_torch
+
+    model, images, mask, targets = gate_setup(device, seed)
+    kernel_msda, outputs, forced = msda_module.ms_deform_attn, [], []
+
+    def recorded(*args):
+        out = kernel_msda(*args)
+        outputs.append(out.detach())
+        return out
+
+    def kernel_valued(value, shapes, loc, w):
+        out = ms_deform_attn_torch(value, shapes, loc, w)
+        kernel_out = outputs[len(forced)]
+        forced.append(kernel_out)
+        return out + (kernel_out - out).detach()
 
     _reset_counts()
-    k_loss, k_grads, k_matched = step()
+    k_loss, k_grads, k_matched = gate_step(model, images, mask, targets,
+                                           recorded)
     kernel_counts = _counts()
-    with mock.patch.object(msda_module, "ms_deform_attn",
-                           ms_deform_attn_torch):
-        p_loss, p_grads, p_matched = step()
+    p_loss, p_grads, p_matched = gate_step(model, images, mask, targets,
+                                           ms_deform_attn_torch)
+    f_loss, f_grads, _ = gate_step(model, images, mask, targets,
+                                   kernel_valued)
     if kernel_counts[:2] != (MSDA_CALLS_PER_FORWARD,) * 2 \
             or _counts()[:2] != kernel_counts[:2]:
         raise AssertionError(f"train gate: msda (launches, backward passes) "
                              f"{kernel_counts[:2]} on the kernel step, "
-                             f"{_counts()[:2]} after the plain one")
+                             f"{_counts()[:2]} after the plain ones")
     loss_err = max(abs(k_loss[k] - p_loss[k]) / max(abs(p_loss[k]), 1e-12)
                    for k in p_loss)
-    if k_grads.keys() != p_grads.keys():
-        raise AssertionError("train gate: gradients of other parameters")
-    grad_err, worst = 0.0, None
-    for n, ref in p_grads.items():
-        scale = ref.abs().max().item()
-        err = (k_grads[n] - ref).abs().max().item()
-        rel = err / scale if scale else (0.0 if err == 0 else float("inf"))
-        if rel > grad_err:
-            grad_err, worst = rel, n
+    # the replay reproduces the kernel step's forward
+    replay_err = max(abs(k_loss[k] - f_loss[k]) / max(abs(k_loss[k]), 1e-12)
+                     for k in k_loss)
+    errs = gate_grad_errors(k_grads, p_grads)
+    replay = gate_grad_errors(k_grads, f_grads)["all"]
     same = torch.equal(k_matched, p_matched)
-    print(f"train gate fp32 bs{GATE_BATCH} {TRAIN_SIZE}: kernel forward vs "
-          f"plain forward, loss_total {k_loss['loss_total']:.6f} / "
-          f"{p_loss['loss_total']:.6f}, max relative loss error "
-          f"{loss_err:.3e} (tol 1e-4), max gradient error "
-          f"{grad_err:.3e} of max|g| (tol 1e-3; {worst}) over "
-          f"{len(p_grads)} parameters, matched queries equal: {same}; msda "
-          f"launches {kernel_counts[0]}, backward passes {kernel_counts[1]}")
-    if not (loss_err <= 1e-4 and grad_err <= 1e-3 and same):
+    print(f"train gate fp32 bs{GATE_BATCH} {TRAIN_SIZE} (batch seed {seed}): "
+          f"kernel forward vs plain forward, loss_total "
+          f"{k_loss['loss_total']:.6f} / {p_loss['loss_total']:.6f}, max "
+          f"relative loss error {loss_err:.3e} (tol 1e-4), matched queries "
+          f"equal: {same}; gradients over {len(p_grads)} parameters: all but "
+          f"the sampling offsets {errs['dense'][0]:.3e} of max|g| (tol "
+          f"{GATE_GRAD_TOL:.0e}; {errs['dense'][1]}), the sampling offsets "
+          f"{errs['offsets'][0]:.3e} of their L2 norm (tol "
+          f"{GATE_OFFSETS_L2_TOL:.0e}; {errs['offsets'][1]}; "
+          f"{errs['offsets_max'][0]:.3e} of max|g|, not held); against the "
+          f"kernel-valued plain step {replay[0]:.3e} of max|g| (tol "
+          f"{GATE_REPLAY_TOL:.0e}; {replay[1]}; its losses {replay_err:.1e} "
+          f"from the kernel step's); msda launches {kernel_counts[0]}, "
+          f"backward passes {kernel_counts[1]}")
+    if not (loss_err <= 1e-4 and same and errs["dense"][0] <= GATE_GRAD_TOL
+            and errs["offsets"][0] <= GATE_OFFSETS_L2_TOL
+            and replay_err <= 1e-6 and replay[0] <= GATE_REPLAY_TOL):
         raise AssertionError("train gate: the kernel forward's step disagrees "
                              "with the plain forward's")
-    return dict(loss_err=loss_err, grad_err=grad_err)
+    return dict(loss_err=loss_err, grad_err=errs["dense"][0],
+                offsets_l2_err=errs["offsets"][0],
+                offsets_max_err=errs["offsets_max"][0],
+                replay_grad_err=replay[0])
 
 
 def train_profile(trainer, batch, device, n_steps=2, regions=None):
@@ -3254,6 +3378,441 @@ def geometry_phase(device):
     return out
 
 
+# ----------------------------------------------------------------------
+# COCO on disk and the multi-scale recipe
+# ----------------------------------------------------------------------
+def fixture_images():
+    import os
+    return sorted(os.path.join(FIXTURE_DIR, n) for n in os.listdir(FIXTURE_DIR)
+                  if n.endswith(".jpg") and n != "corrupt.jpg")
+
+
+def decode_gate():
+    """Every fixture decoded by the port's loader on this machine against
+    the cv2 decode stored beside it (bit-equal), and the corrupt one
+    refused. Returns {file:mode: (max |diff|, differing samples)} and the
+    mean ms a decode."""
+    import os
+    import numpy as np
+    from aloception_tpu_torch.aloscene import InvalidSampleError
+    from aloception_tpu_torch.runtime import decode
+    from aloception_tpu_torch.runtime.loader import load_library
+    from aloception_tpu_torch.utils.coco_fixture import read_decodes
+    t0 = time.perf_counter()
+    load_library()
+    build_s = time.perf_counter() - t0
+    ref = read_decodes(os.path.join(FIXTURE_DIR, "decodes.npz"))
+    out, times = {}, []
+    for key, want in sorted(ref.items()):
+        name, mode = key.split(":")
+        t = time.perf_counter()
+        got = decode(os.path.join(FIXTURE_DIR, name), mode).numpy()
+        times.append(time.perf_counter() - t)
+        got = got.reshape(want.shape).astype(np.int64)
+        diff = np.abs(got - want.astype(np.int64))
+        out[key] = (int(diff.max()), int((diff > 0).sum()))
+        print(f"decode gate {key}: {want.shape} {want.dtype}, max|port-cv2| "
+              f"{out[key][0]}, differing samples {out[key][1]}, "
+              f"{times[-1] * 1e3:.2f} ms")
+    try:
+        decode(os.path.join(FIXTURE_DIR, "corrupt.jpg"))
+        raise AssertionError("the corrupt fixture decoded")
+    except InvalidSampleError as e:
+        print(f"decode gate corrupt.jpg: InvalidSampleError ({e})")
+    bad = {k: v for k, v in out.items() if v[0]}
+    if bad:
+        raise AssertionError(f"decodes differ from cv2: {bad}")
+    ms = sum(times) / len(times) * 1e3
+    print(f"decode gate: {len(out)} decodes bit-equal to cv2's; the loader "
+          f"built in {build_s:.1f} s; {ms:.2f} ms a decode")
+    return dict(equal=len(out), mean_decode_ms=ms, build_s=build_s)
+
+
+def bucket_levels(hw):
+    """Deformable-DETR-R50's level shapes at a padded (H, W): strides 8, 16,
+    32 and the extra stride-2 level."""
+    levels = [(-(-hw[0] // s), -(-hw[1] // s)) for s in (8, 16, 32)]
+    levels.append((-(-levels[-1][0] // 2), -(-levels[-1][1] // 2)))
+    return tuple(levels)
+
+
+def bucket_msda_inputs(shapes, Lq, dtype, device, seed):
+    """MSDA inputs of a padded batch of 2: the second item's locations fall
+    inside its valid ratios (BUCKET_VALID), a few past them, as the
+    encoder's reference points and offsets put them."""
+    value, shapes, loc, w = msda_inputs(shapes, 2, Lq, C, (0.0, 1.0),
+                                        torch.float32, device, seed=seed)
+    vr = torch.tensor(BUCKET_VALID, device=device).flip(-1)  # (x, y)
+    loc = loc * vr.view(2, 1, 1, 1, 1, 2) + 0.05 * (
+        torch.rand(loc.shape, device=device, generator=torch.Generator(
+            device=device).manual_seed(seed + 1)) - 0.5)
+    return value.to(dtype), shapes, loc.to(dtype), w.to(dtype)
+
+
+def bucket_kernel_gate(device):
+    """The MSDA kernel against the plain version at each of the six
+    buckets' level shapes, the encoder (Lq = Len_v) and decoder (Lq = 300)
+    calls at B = 2, float32 and bfloat16, each launch plan printed; then the
+    largest bucket's float32 encoder call timed (CUDA graphs and eager
+    launches) beside the plain version and its bound."""
+    from aloception_tpu_torch.ops.cuda import ms_deform_attn_cuda
+    from aloception_tpu_torch.ops.ms_deform_attn import ms_deform_attn_torch
+    from aloception_tpu_torch.train.data_modules import MULTISCALE_BUCKETS
+    errs = {}
+    for hw in MULTISCALE_BUCKETS:
+        shapes = bucket_levels(hw)
+        len_v = sum(h * w for h, w in shapes)
+        for site, Lq in (("encoder", len_v), ("decoder", 300)):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = bucket_msda_inputs(shapes, Lq, dtype, device, seed=7)
+                got = ms_deform_attn_cuda(*args)
+                torch.cuda.synchronize()
+                tag = f"{hw[0]}x{hw[1]} {site}/{str(dtype).split('.')[-1]}"
+                err, tol = _gate(got, ms_deform_attn_torch(*args), dtype, tag)
+                errs[tag] = err
+                print(f"msda bucket {tag}: levels {shapes} Lq={Lq} "
+                      f"[{brief(plan_of(*args))}] max|kernel-plain|={err:.3e} "
+                      f"(tol {tol:.3e})")
+    hw = max(MULTISCALE_BUCKETS, key=lambda b: b[0] * b[1])
+    shapes = bucket_levels(hw)
+    args = bucket_msda_inputs(shapes, sum(h * w for h, w in shapes),
+                              torch.float32, device, seed=8)
+    ms = graph_ms(lambda: ms_deform_attn_cuda(*args))
+    eager_ms = cuda_ms(lambda: ms_deform_attn_cuda(*args))
+    plain_ms = graph_ms(lambda: ms_deform_attn_torch(*args), iters=3, reps=1)
+    bound_ms, bound_by, nbytes, fmas, _ = msda_bound(*args)
+    print(f"msda largest bucket {hw} encoder B=2 Lq={args[2].shape[1]} fp32 "
+          f"[{brief(plan_of(*args))}]: kernel {ms:.4f} ms (graph) "
+          f"{eager_ms:.4f} ms (eager), plain {plain_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+          f"{fmas / 1e9:.3f} G FMA), {bound_ms / ms:.1%} of the bound")
+    return errs, dict(bucket=list(hw), ms=ms, eager_ms=eager_ms,
+                      plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+class _DataTimes:
+    """Host seconds of each sample's decode (``getitem``) and transforms
+    (``transform_fn``), by dataset index, recorded from the loader's worker
+    threads; and of each train batch's ``prepare_batch`` with its padded
+    size, in the consumer's thread."""
+
+    def __init__(self, dm):
+        import threading
+        self.lock, self.local = threading.Lock(), threading.local()
+        self.decode, self.transform, self.batches = {}, {}, []
+        ds = dm.train_dataset
+        getitem, tfn, prepare = ds.getitem, ds.transform_fn, dm.prepare_batch
+
+        def timed_getitem(idx):
+            t = time.perf_counter()
+            out = getitem(idx)
+            self.local.idx = idx
+            with self.lock:
+                self.decode[idx] = time.perf_counter() - t
+            return out
+
+        def timed_transform(frame, *args):
+            t = time.perf_counter()
+            out = tfn(frame, *args)
+            with self.lock:
+                self.transform[self.local.idx] = time.perf_counter() - t
+            return out
+
+        def timed_prepare(frames, training=True):
+            t = time.perf_counter()
+            out = prepare(frames, training)
+            if training:
+                self.batches.append(dict(
+                    seconds=time.perf_counter() - t,
+                    hw=tuple(out["inputs"][0].shape[1:3]), prepared=out))
+            return out
+        ds.getitem, ds.transform_fn = timed_getitem, timed_transform
+        dm.prepare_batch = timed_prepare
+
+
+def multiscale_train_phase(device, root):
+    """``train_on_coco --model deformable --multiscale --batch_size 2
+    --max_steps 8`` on the directory (Deformable-DETR-R50-refine, 91
+    classes, random weights from the seeded global generator, float32, TF32
+    off): per step its bucket, host ms, the workers' host ms to decode and
+    transform its frames, the consumer's ms in ``prepare_batch``, peak
+    memory, kernel launches and syncs; then device-busy ms and idle share of
+    each step's batch from a device-only trace; then the loss over
+    MULTISCALE_OVERFIT steps on one repeated batch (the mean of the last
+    three below the first)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity
+    import aloception_tpu_torch.train as train_pkg
+    from aloception_tpu_torch.alodataset import base_dataset
+    from aloception_tpu_torch.commands import train_on_coco
+    from aloception_tpu_torch.train.trainer import to_device
+
+    recorder = make_recorder()
+    record_row = recorder.on_train_batch_end
+
+    def on_end(trainer, metrics, step):
+        record_row(trainer, metrics, step)
+        recorder.rows[-1]["peak"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+    recorder.on_train_batch_end = on_end
+    made, factory = {}, train_pkg.make_deformable_detr_trainer
+
+    def instrumented(**kwargs):
+        made["times"] = _DataTimes(kwargs["data_module"])
+        kwargs["callbacks"] = list(kwargs["callbacks"]) + [recorder]
+        trainer = factory(**kwargs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        made["t0"] = time.perf_counter()
+        return trainer
+
+    torch.manual_seed(0)
+    _reset_counts()
+    log_dir = os.path.join(root, "expe")
+    with mock.patch.object(train_pkg, "make_deformable_detr_trainer",
+                           instrumented), \
+            mock.patch.object(base_dataset, "CONFIG_PATH",
+                              os.path.join(root, "alodataset_config.json")):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                recorder.caught = caught
+                trainer = train_on_coco.main(
+                    ["--model", "deformable", "--multiscale", "--batch_size",
+                     str(MULTISCALE_BATCH), "--max_steps",
+                     str(MULTISCALE_STEPS), "--log_dir", log_dir])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        dm, data = trainer.data_module, made["times"]
+        rows = recorder.rows[:MULTISCALE_STEPS]
+        if trainer.global_step != MULTISCALE_STEPS or \
+                len(data.batches) != MULTISCALE_STEPS:
+            raise AssertionError(f"{trainer.global_step} steps")
+        # the epoch's batches, in the loader's order (seed 0, epoch 0)
+        order = np.arange(len(dm.train_dataset))
+        np.random.RandomState(0).shuffle(order)
+        steps, prev = [], dict(t=made["t0"], counts=(0, 0, 0), syncs=0)
+        for k, row in enumerate(rows):
+            idx = order[k * MULTISCALE_BATCH:(k + 1) * MULTISCALE_BATCH]
+            counts = tuple(a - b for a, b in zip(row["counts"],
+                                                 prev["counts"]))
+            step = dict(
+                bucket=list(data.batches[k]["hw"]),
+                ms=(row["t"] - prev["t"]) * 1e3,
+                decode_ms=sum(data.decode[i] for i in idx) * 1e3,
+                transform_ms=sum(data.transform[i] for i in idx) * 1e3,
+                prepare_ms=data.batches[k]["seconds"] * 1e3,
+                peak_gib=row["peak"], msda=counts[0], msda_backward=counts[1],
+                hungarian=counts[2], syncs=row["syncs"] - prev["syncs"],
+                loss=row["metrics"]["loss_total"])
+            if not np.isfinite(step["loss"]):
+                raise AssertionError(f"multi-scale step {k}: loss {step}")
+            if counts != (MSDA_CALLS_PER_FORWARD, MSDA_CALLS_PER_FORWARD, 1):
+                raise AssertionError(f"multi-scale step {k}: (msda, backward, "
+                                     f"hungarian) {counts}")
+            steps.append(step)
+            prev = row
+        launches = tuple(sum(s[k] for s in steps)
+                         for k in ("msda", "msda_backward", "hungarian"))
+        # device-busy and idle share of each step's batch, traced alone
+        for step, batch in zip(steps, data.batches):
+            inputs = to_device(batch["prepared"]["inputs"], device)
+            targets = to_device(batch["prepared"]["targets"], device)
+            n_act, busy, window = _device_busy(_trace(
+                lambda: trainer.train_step(inputs, targets)[1].cpu(),
+                [ProfilerActivity.CUDA], 1))
+            step.update(device_busy_ms=busy / 1e3, idle=1 - busy / window,
+                        activities=n_act)
+        for k, s in enumerate(steps):
+            print(f"multi-scale step {k}: bucket {s['bucket']}, "
+                  f"{s['ms']:.1f} ms (host clock); workers' host ms to decode "
+                  f"{s['decode_ms']:.1f} and transform {s['transform_ms']:.1f}"
+                  f", prepare_batch {s['prepare_ms']:.1f} ms; device-busy "
+                  f"{s['device_busy_ms']:.1f} ms, idle share "
+                  f"{s['idle']:.4f} ({s['activities']} activities); peak "
+                  f"{s['peak_gib']:.2f} GiB; msda launches {s['msda']}, "
+                  f"backward passes {s['msda_backward']}, hungarian "
+                  f"{s['hungarian']}; syncs {s['syncs']}; loss_total "
+                  f"{s['loss']:.4f}")
+        first = {}
+        for s in steps:
+            first.setdefault(tuple(s["bucket"]), s["ms"])
+        print(f"multi-scale training: {MULTISCALE_STEPS} steps bs"
+              f"{MULTISCALE_BATCH}, mean {np.mean([s['ms'] for s in steps]):.1f}"
+              f" ms a step; first step at each bucket (ms) {first}; launches "
+              f"(msda, backward, hungarian) {launches}")
+        # the loss on one repeated batch
+        fixed = [dm.train_dataset[i] for i in order[:MULTISCALE_BATCH]]
+        recorder.caught = []
+        overfit = recorded_fit(trainer, recorder,
+                               [fixed] * MULTISCALE_OVERFIT)
+        losses = [m["loss_total"] for _, _, _, m in overfit]
+        print(f"multi-scale, one repeated batch "
+              f"{list(data.batches[-1]['hw'])}: loss_total "
+              f"{[round(v, 4) for v in losses]}")
+        # dropout 0.1 makes single steps noisy: the last three's mean
+        if not (np.isfinite(losses).all()
+                and np.mean(losses[-3:]) < losses[0]):
+            raise AssertionError("the loss did not fall on a repeated batch")
+    return trainer, dict(steps=steps, launches=launches,
+                         overfit_losses=losses)
+
+
+def multiscale_eval_phase(root):
+    """``eval_on_coco --model deformable --multiscale`` on val2017 (shorter
+    side 800, longer at most 1333; random weights): AP, and the loop's
+    rate. A batch's time runs from the loop's request for it to its request
+    for the next (loader wait, ``prepare_batch``, the model, ``inference``,
+    the AP bookkeeping; not the AP tables at the end). The first batch at
+    each padded size is warm-up (cuDNN's choice of algorithms, the
+    allocator's growth) and is reported alone; images/s is over the
+    others."""
+    import math
+    import numpy as np
+    from aloception_tpu_torch.alodataset import base_dataset
+    from aloception_tpu_torch.commands import eval_on_coco
+    from aloception_tpu_torch.train import CocoDetection2Detr
+    requests, waits, prepares, sizes = [], [], [], []
+    val_loader, prepare = (CocoDetection2Detr.val_dataloader,
+                           CocoDetection2Detr.prepare_batch)
+
+    def timed_loader(self):
+        it = iter(val_loader(self))
+        while True:
+            t = time.perf_counter()
+            requests.append(t)
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            waits.append(time.perf_counter() - t)
+            yield batch
+
+    def timed_prepare(self, frames, training=True):
+        t = time.perf_counter()
+        out = prepare(self, frames, training)
+        prepares.append(time.perf_counter() - t)
+        sizes.append((tuple(out["inputs"][0].shape[1:3]), len(frames)))
+        return out
+
+    _reset_counts()
+    with mock.patch.object(CocoDetection2Detr, "val_dataloader",
+                           timed_loader), \
+            mock.patch.object(CocoDetection2Detr, "prepare_batch",
+                              timed_prepare), \
+            mock.patch.object(base_dataset, "CONFIG_PATH",
+                              os.path.join(root, "alodataset_config.json")):
+        maps = eval_on_coco.main(["--model", "deformable", "--multiscale",
+                                  "--batch_size", str(MULTISCALE_BATCH)])
+        torch.cuda.synchronize()
+    ap = maps["all"]["all"]
+    n_batches = len(sizes)
+    batch_s = [b - a for a, b in zip(requests, requests[1:])]
+    first_at = {}
+    for k, (hw, _) in enumerate(sizes):
+        first_at.setdefault(hw, k)
+    timed = [k for k in range(n_batches) if k not in first_at.values()]
+    out = dict(ap=ap, images=sum(n for _, n in sizes), batches=n_batches,
+               images_per_s=sum(sizes[k][1] for k in timed)
+               / sum(batch_s[k] for k in timed),
+               timed_batches=len(timed), first_batch_ms=batch_s[0] * 1e3,
+               first_at_size_ms={f"{h}x{w}": batch_s[k] * 1e3
+                                 for (h, w), k in first_at.items()},
+               batches_at_size={f"{h}x{w}": sum(1 for s, _ in sizes
+                                                if s == (h, w))
+                                for h, w in first_at},
+               steady_batch_ms=float(np.median([batch_s[k] for k in timed]))
+               * 1e3,
+               wait_ms=sum(waits) / n_batches * 1e3,
+               prepare_ms=sum(prepares) / n_batches * 1e3,
+               msda_launches=_counts()[0])
+    print(f"eval_on_coco --multiscale on val2017 ({out['images']} images, "
+          f"{n_batches} batches of {MULTISCALE_BATCH}): AP {ap:.3f}; "
+          f"{out['images_per_s']:.2f} images/s over the {len(timed)} batches "
+          f"after the first at each padded size (median "
+          f"{out['steady_batch_ms']:.1f} ms a batch); the first batch "
+          f"{out['first_batch_ms']:.1f} ms; the first at each size (ms) "
+          f"{out['first_at_size_ms']}, batches at each size "
+          f"{out['batches_at_size']}; host ms a batch waiting for the loader "
+          f"{out['wait_ms']:.1f} and in prepare_batch {out['prepare_ms']:.1f}"
+          f", msda launches {out['msda_launches']}")
+    if not math.isfinite(ap) or out["images"] != COCO_VAL_IMAGES or \
+            out["msda_launches"] != n_batches * MSDA_CALLS_PER_FORWARD:
+        raise AssertionError(f"eval_on_coco --multiscale: {out}")
+    return out
+
+
+def from_directory_request(model, device):
+    """A folder of the fixtures through ``FromDirectoryDataset`` (the
+    corrupt file stepped over) -> resize (shorter side 800, longer at most
+    1333) -> ``norm_resnet`` -> ``batch_list`` (padded to its bucket) ->
+    Deformable-DETR-R50 on the card -> ``inference``."""
+    from aloception_tpu_torch.alodataset import FromDirectoryDataset
+    from aloception_tpu_torch.aloscene import batch_list
+    from aloception_tpu_torch.alodataset.transforms import \
+        RandomResizeWithAspectRatio
+    from aloception_tpu_torch.models.deformable_detr import inference
+    from aloception_tpu_torch.train.data_modules import pick_bucket
+    ds = FromDirectoryDataset(FIXTURE_DIR)
+    resize = RandomResizeWithAspectRatio([800], max_size=1333)
+    t0 = time.perf_counter()
+    frames = [resize(ds[i]).norm_resnet() for i in range(len(ds))]
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    _reset_counts()
+    model.eval()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        batch = batch_list(frames, size=pick_bucket(max(f.H for f in frames),
+                                                    max(f.W for f in frames)))
+        batch = batch.to(device)
+        out = model(batch.as_layout(("B", "H", "W", "C")),
+                    batch.mask.array[:, 0])
+        dets = inference(out)
+    torch.cuda.synchronize()
+    latency = time.perf_counter() - t0
+    model.train()
+    n = check_detections(dets, len(ds))
+    launches = _counts()[0]
+    print(f"FromDirectoryDataset request: {len(ds)} files of {FIXTURE_DIR} "
+          f"-> bs{len(ds)} {tuple(batch.HW)}, decode and resize on the host "
+          f"{host_s * 1e3:.1f} ms, request {latency:.3f} s, detections {n}, "
+          f"msda launches {launches}")
+    if launches != MSDA_CALLS_PER_FORWARD:
+        raise AssertionError(f"{launches} msda launches in one request")
+    return dict(frames=len(ds), hw=list(batch.HW), latency_s=latency,
+                host_ms=host_s * 1e3, msda_launches=launches)
+
+
+def coco_disk_phase(device):
+    """COCO on disk and the multi-scale recipe on the card: the decode
+    gate, the MSDA kernel at the six buckets, a COCO-format directory of the
+    fixtures, multi-scale training through ``train_on_coco``,
+    ``eval_on_coco --multiscale`` and a ``FromDirectoryDataset`` request."""
+    import tempfile
+    from aloception_tpu_torch.utils.coco_fixture import build_coco_dir
+    t0 = time.perf_counter()
+    out = {"decode": decode_gate()}
+    out["bucket_errs"], out["largest_bucket"] = bucket_kernel_gate(device)
+    with tempfile.TemporaryDirectory() as root:
+        build_coco_dir(root, fixture_images(), seed=0,
+                       n_train=COCO_TRAIN_IMAGES, n_val=COCO_VAL_IMAGES)
+        # the dataset config that names it, as a user's would
+        with open(os.path.join(root, "alodataset_config.json"), "w") as f:
+            json.dump({"coco": root}, f)
+        torch.cuda.empty_cache()
+        trainer, out["train"] = multiscale_train_phase(device, root)
+        out["from_directory"] = from_directory_request(trainer.model, device)
+        del trainer
+        torch.cuda.empty_cache()
+        out["eval"] = multiscale_eval_phase(root)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"coco_disk phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: "
@@ -3331,6 +3890,12 @@ def main():
     export["quantization"] = quantization_phase(device)
     torch.cuda.empty_cache()
     geometry = geometry_phase(device)
+    torch.cuda.empty_cache()
+    coco = coco_disk_phase(device)
+    ms_train = coco["train"]["launches"]
+    coco_msda = {"multiscale_train": ms_train[0],
+                 "multiscale_eval": coco["eval"]["msda_launches"],
+                 "from_directory": coco["from_directory"]["msda_launches"]}
     export_msda = export["deformable"]["request_msda_launches"]
     pan_train = panoptic_train["deformable_detr_r50_panoptic"]
     pan_msda = {
@@ -3354,24 +3919,28 @@ def main():
         "source": "aloception_tpu_torch/csrc/ms_deform_attn.cu",
         "replaces": "aloception_tpu/ops/pallas/ms_deform_attn_kernel.py:245",
         "launches": launches + frame_launches + msda_train
-        + sum(pan_msda.values()) + export_msda,
+        + sum(pan_msda.values()) + export_msda + sum(coco_msda.values()),
         "launches_by_path": {"fused_preprocess": launches,
                              "frame": frame_launches,
                              "train": msda_train, **pan_msda,
                              # the AOTInductor package's requests
-                             "export": export_msda},
+                             "export": export_msda, **coco_msda},
         # the training path's backward: the gradient of the plain version,
         # recomputed by the operator's registered backward; the panoptic paths'
         # detector is frozen and takes none
         "backward_passes": msda_backward + pan_train["backward_passes"]
-        + commands["backward_passes"],
+        + commands["backward_passes"] + ms_train[1],
         "backward_passes_by_path": {
             "train": msda_backward,
             "panoptic_train": pan_train["backward_passes"],
-            "panoptic_train_command": commands["backward_passes"]},
-        "max_abs_err": max(v for k, v in errs.items() if "float32" in k),
-        "max_abs_err_bf16": max(v for k, v in errs.items()
-                                if "bfloat16" in k),
+            "panoptic_train_command": commands["backward_passes"],
+            "multiscale_train": ms_train[1]},
+        "max_abs_err": max(v for k, v in {**errs, **coco["bucket_errs"]}.items()
+                           if "float32" in k),
+        "max_abs_err_bf16": max(v for k, v in {**errs, **coco["bucket_errs"]
+                                               }.items() if "bfloat16" in k),
+        # the largest multi-scale bucket's fp32 encoder call
+        "largest_bucket": coco["largest_bucket"],
         "ms": enc["ms"], "ms_eager": enc["eager_ms"],
         "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
@@ -3393,10 +3962,12 @@ def main():
         "source": "aloception_tpu_torch/csrc/hungarian.cu",
         # the JAX package's on-device JV (XLA loops, not a Pallas kernel)
         "replaces": "aloception_tpu/ops/hungarian.py:28",
-        "launches": hung_train + detr_train["launches"] + hung_pan,
+        "launches": hung_train + detr_train["launches"] + hung_pan
+        + ms_train[2],
         "launches_by_path": {"train": hung_train,
                              "detr_train": detr_train["launches"],
-                             "panoptic_train": hung_pan},
+                             "panoptic_train": hung_pan,
+                             "multiscale_train": ms_train[2]},
         # the largest query-index difference from the plain version's
         # assignment, and the targets matched differently, as measured
         "max_abs_err": hung_diff["max_abs_err"],
@@ -3428,7 +3999,10 @@ def main():
         "export": export,
         # aloscene's 3-D geometry, the 3D AP and the depth metrics: torch
         # ops, no kernel of the port
-        "geometry": geometry}))
+        "geometry": geometry,
+        # COCO on disk: the decode gate, multi-scale training and eval, the
+        # FromDirectoryDataset request (the kernel entries carry launches)
+        "coco_disk": {k: v for k, v in coco.items() if k != "bucket_errs"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

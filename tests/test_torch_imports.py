@@ -87,6 +87,22 @@ def test_geometry_modules_are_checked(module):
     assert PKG / module in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "runtime/__init__.py", "runtime/loader.py", "aloscene/io/image.py",
+    "aloscene/io/mask.py", "alodataset/base_dataset.py",
+    "alodataset/mixins.py", "alodataset/io_utils.py",
+    "alodataset/transforms.py", "alodataset/coco_detection.py",
+    "alodataset/coco_panoptic.py", "alodataset/lvis.py",
+    "alodataset/merge_dataset.py", "alodataset/from_directory.py",
+    "ops/preprocess.py", "train/data_modules.py", "utils/coco_fixture.py"])
+def test_data_layer_modules_are_checked(module):
+    """The data layer's modules (the native loader's binding, the image
+    readers, the datasets and transforms, the preprocessing) are among the
+    sources checked below; the loader's C++ source is the port's own."""
+    assert PKG / module in SOURCES
+    assert (PKG / "runtime" / "aloloader.cpp").exists()
+
+
 @pytest.mark.parametrize("child", ["points2d", "cam_intrinsic"])
 def test_rotate_carries_unrotatable_children_as_jax(child):
     """``Points2D`` and ``CameraIntrinsic`` cannot rotate (their

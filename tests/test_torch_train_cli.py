@@ -8,6 +8,8 @@ CUDA card, and raise without one."""
 
 import math
 
+import numpy as np
+
 import pytest
 import torch
 
@@ -88,3 +90,137 @@ def test_training_runs_on_the_card_or_raises(command, argv, tmp_path):
     else:
         with pytest.raises(RuntimeError, match='device="cpu"'):
             command.main(argv)
+
+
+# ----------------------------------------------------------------------
+# COCO on disk and the multi-scale recipe
+# ----------------------------------------------------------------------
+@pytest.fixture
+def coco_on_disk(tmp_path, monkeypatch):
+    """A COCO-format directory of the image fixtures, named as "coco" in a
+    private dataset config of both packages."""
+    from pathlib import Path
+    import aloception_tpu.alodataset.base_dataset as jbase
+    import aloception_tpu_torch.alodataset.base_dataset as tbase
+    from aloception_tpu_torch.utils.coco_fixture import build_coco_dir
+    fixtures = Path(__file__).resolve().parent / "fixtures" / "torch_coco"
+    jpegs = sorted(str(p) for p in fixtures.glob("*.jpg")
+                   if p.name != "corrupt.jpg")
+    root = build_coco_dir(str(tmp_path / "coco"), jpegs, seed=4, n_train=4,
+                          n_val=2, objects=(1, 12))
+    cfg = str(tmp_path / "alodataset_config.json")
+    monkeypatch.setattr(jbase, "CONFIG_PATH", cfg)
+    monkeypatch.setattr(tbase, "CONFIG_PATH", cfg)
+    tbase.save_dataset_config({"coco": root})
+    return root
+
+
+def test_train_and_eval_multiscale_on_disk(coco_on_disk, tmp_path, capsys,
+                                           monkeypatch):
+    """train_on_coco --multiscale (Deformable-DETR, tiny) for 2 steps on
+    the directory, then eval_on_coco --multiscale on its val split. The
+    scales and buckets are cut (shorter side 128-160) to keep the CPU's
+    convolutions short; the real ones are held without a model below."""
+    import functools
+    from aloception_tpu_torch.commands import eval_on_coco
+    from aloception_tpu_torch.train import data_modules
+    monkeypatch.setattr(data_modules, "REFERENCE_SCALES", [128, 160])
+    monkeypatch.setattr(data_modules, "pick_bucket", functools.partial(
+        data_modules.pick_bucket, buckets=((128, 192), (192, 256))))
+    trainer = train_on_coco.main(
+        ["--cpu", "--tiny", "--multiscale", "--model", "deformable",
+         "--fast_dev_run", "--batch_size", "2", "--num_workers", "2",
+         "--log_dir", str(tmp_path)])
+    assert trainer.global_step == 2
+    assert math.isfinite(trainer.last_val_metrics["val_loss_total"])
+    maps = eval_on_coco.main(["--cpu", "--tiny", "--multiscale", "--model",
+                              "deformable", "--limit_batches", "1"])
+    out = capsys.readouterr().out
+    assert "[eval_on_coco] AP=" in out and 0.0 <= maps["all"]["all"] <= 100
+
+
+def test_coco_on_disk_without_a_directory_raises(tmp_path, monkeypatch):
+    import os
+    import aloception_tpu_torch.alodataset.base_dataset as tbase
+    monkeypatch.setattr(tbase, "CONFIG_PATH", str(tmp_path / "none.json"))
+    monkeypatch.setattr(os, "isatty", lambda fd: False)
+    with pytest.raises(FileNotFoundError, match="coco"):
+        train_on_coco.main(["--cpu", "--tiny", "--log_dir", str(tmp_path)])
+
+
+def test_multiscale_prepare_batch_matches_jax(coco_on_disk):
+    """The multi-scale validation batches (shorter side 800, longer at most
+    1333): the same buckets, padding masks and targets as the JAX data
+    module's, images within 1e-4 (the bilinear resize's last bits)."""
+    from aloception_tpu.train import CocoDetection2Detr as JaxDM
+    from aloception_tpu_torch.train import CocoDetection2Detr
+    tdm = CocoDetection2Detr(size=None, batch_size=2, num_workers=0)
+    jdm = JaxDM(size=None, batch_size=2, num_workers=0)
+    for tb, jb in zip(tdm.val_dataloader(), jdm.val_dataloader()):
+        got = tdm.prepare_batch(tb, training=False)
+        want = jdm.prepare_batch(jb, training=False)
+        gi, gm = got["inputs"]
+        wi, wm = want["inputs"]
+        assert gi.shape == wi.shape
+        np.testing.assert_array_equal(gm.numpy(), wm)
+        np.testing.assert_allclose(gi.numpy(), wi, atol=1e-4, rtol=0)
+        for k, v in want["targets"].items():
+            np.testing.assert_allclose(got["targets"][k].numpy(),
+                                       np.asarray(v), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("hw", [(800, 1066), (1066, 800), (800, 1199),
+                                (480, 640), (1333, 750), (900, 1400)])
+def test_pick_bucket_matches_jax(hw):
+    from aloception_tpu.train.data_modules import pick_bucket as jax_pick
+    from aloception_tpu_torch.train.data_modules import pick_bucket
+    assert pick_bucket(*hw) == jax_pick(*hw)
+
+
+def test_multiscale_train_frames_fit_their_buckets(coco_on_disk):
+    """The train transform's frames (flip, multi-scale resize or
+    resize-crop-resize): shorter side at most 800, longer at most 1333, and
+    every batch padded to the bucket that holds its frames (a 64-multiple
+    square where a landscape and a portrait frame share a batch)."""
+    from aloception_tpu_torch.train import CocoDetection2Detr
+    from aloception_tpu_torch.train.data_modules import (MULTISCALE_BUCKETS,
+                                                         pick_bucket)
+    dm = CocoDetection2Detr(size=None, batch_size=2, num_workers=2, seed=3)
+    shapes = {tuple(sorted(b)) for b in MULTISCALE_BUCKETS}
+    for _ in range(2):
+        for frames in dm.train_dataloader():
+            batch = dm.prepare_batch(frames)
+            hw = tuple(batch["inputs"][0].shape[1:3])
+            want = pick_bucket(max(f.H for f in frames),
+                               max(f.W for f in frames))
+            assert hw == want
+            assert tuple(sorted(hw)) in shapes or hw[0] % 64 == hw[1] % 64 == 0
+            for f in frames:
+                assert max(f.HW) <= 1333 and min(f.HW) <= 800
+                assert f.normalization == "resnet"
+
+
+def test_multiscale_batches_do_not_depend_on_the_workers(coco_on_disk):
+    """Each sample draws from a generator of (seed, epoch, index) with a
+    copy of the transforms of its own: two loaders of 2 worker threads and
+    one of none give equal batches over two epochs, and an index draws anew
+    in the next epoch."""
+    from aloception_tpu_torch.train import CocoDetection2Detr
+
+    def run(workers):
+        dm = CocoDetection2Detr(size=None, batch_size=2, num_workers=workers,
+                                seed=3)
+        loader = dm.train_dataloader()
+        return dm, [[dm.prepare_batch(frames)["inputs"][0]
+                     for frames in loader] for _ in range(2)]
+
+    dm, want = run(2)
+    for _, got in (run(2), run(0)):
+        for g_epoch, w_epoch in zip(got, want):
+            assert len(g_epoch) == len(w_epoch) == 2
+            for g, w in zip(g_epoch, w_epoch):
+                assert torch.equal(g, w)
+    ds = dm.train_dataset
+    assert any(ds.get(i, 0).HW != ds.get(i, 1).HW
+               or not torch.equal(ds.get(i, 0).array, ds.get(i, 1).array)
+               for i in range(len(ds)))

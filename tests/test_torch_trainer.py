@@ -170,15 +170,14 @@ def test_train_on_coco_command(model, tmp_path):
     assert all(p.device.type == "cpu" for p in trainer.model.parameters())
 
 
-@pytest.mark.parametrize("flags", [["--multiscale"], ["--bf16"],
-                                   ["--tp", "2"], []])
+@pytest.mark.parametrize("flags", [["--log", "tensorboard"], ["--bf16"],
+                                   ["--tp", "2"], ["--multihost"]])
 def test_train_on_coco_refuses_what_is_not_ported(flags, tmp_path):
-    """Flags of later ROADMAP items, and COCO on disk (no --sample),
-    raise."""
+    """Flags of later ROADMAP items raise (``--multiscale`` and COCO on
+    disk are ported: ``tests/test_torch_train_cli.py``)."""
     from aloception_tpu_torch.commands.train_on_coco import main
-    sample = [] if not flags else ["--sample"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--cpu", "--tiny", *sample, *flags,
+        main(["--cpu", "--tiny", "--sample", *flags,
               "--log_dir", str(tmp_path)])
 
 

@@ -48,7 +48,7 @@ def close(got: torch.Tensor, want, atol: float):
     got = got.detach().float().numpy()
     want = np.asarray(want, np.float32)
     assert got.shape == want.shape, (got.shape, want.shape)
-    err = float(np.abs(got - want).max())
+    err = float(np.abs(got - want).max(initial=0.0))
     assert err <= atol, f"max |diff| {err} > {atol}"
 
 
