@@ -2,39 +2,99 @@
 
 It replaces the on-device Jonker-Volgenant solver of the JAX package,
 ``aloception_tpu/ops/hungarian.py:28`` (XLA loops, not a Pallas kernel). Its
-plain version is ``ops.hungarian.hungarian_torch``.
+plain version is ``ops.hungarian.hungarian_torch``. ``launch_plan`` sizes the
+launch from the call's shapes; it is pure, cached, and reached by the CPU
+tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from .build import load_library
 
-# what a block may use on Hopper, with room for the static part
+# what a block may use on Hopper (232,448 bytes)
 MAX_SMEM_BYTES = 227 * 1024
+WARP = 32
+BLOCK_WARPS = 4              # 128 threads a block; a warp solves a matrix
+# the kernel's instances: columns a lane keeps in registers
+# (hungarian.cu::kLaneColumns)
+LANE_COLUMNS = (1, 2, 4, 8, 10, 16, 24, 32, 48, 64)
+MAX_QUERIES = WARP * LANE_COLUMNS[-1]
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one call is launched.
+
+    lane_columns: the kernel instance, columns (queries) a lane owns, the
+        least of ``LANE_COLUMNS`` with 32 x it >= Nq; staged: the cost slice
+        of each matrix copied into shared memory (else read from global
+        memory); per_block: matrices (warps) a block of 128 threads;
+        smem_bytes: the block's dynamic shared memory."""
+    lane_columns: int
+    staged: bool
+    per_block: int
+    smem_bytes: int
+
+
+def slice_bytes(nq: int, nt: int, staged: bool) -> int:
+    """Shared memory of one matrix (``hungarian.cu::slice_words``): the cost
+    slice if staged, in its native layout, its rows of Nt targets Nt | 1
+    words apart; then u, p and way."""
+    words = (nt + 1) + 2 * (nq + 1) + (nq * (nt | 1) if staged else 0)
+    return 4 * ((words + 3) & ~3)
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    lib = load_library("hungarian")
-    lib.hungarian_forward.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.hungarian_forward.restype = ctypes.c_int
-    lib.hungarian_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.hungarian_smem_bytes.restype = ctypes.c_longlong
-    return lib
+def launch_plan(M: int, Nq: int, Nt: int, n_sms: int = H100_SMS
+                ) -> LaunchPlan:
+    """The plan of a call on M matrices of Nq queries x Nt targets, on a
+    card of ``n_sms`` SMs. A matrix is staged where its slice fits a block;
+    a block takes as few matrices as keep the grid within one wave of
+    blocks (one a block up to ``n_sms`` matrices), at most four, and as many
+    as fit. Raises ValueError where the kernel cannot take the call: Nt >
+    Nq, or Nq above ``MAX_QUERIES``."""
+    if Nt > Nq:
+        raise ValueError(f"{Nt} targets for {Nq} queries: the assignment "
+                         "needs Nt <= Nq")
+    k = next((k for k in LANE_COLUMNS if WARP * k >= Nq), None)
+    if k is None:
+        raise ValueError(f"Nq={Nq} queries: the kernel takes at most "
+                         f"{MAX_QUERIES} (a warp's lanes hold the columns)")
+    staged = slice_bytes(Nq, Nt, True) <= MAX_SMEM_BYTES
+    one = slice_bytes(Nq, Nt, staged)
+    fit = min(BLOCK_WARPS, MAX_SMEM_BYTES // one)
+    per_block = max(1, min(fit, -(-M // n_sms)))
+    return LaunchPlan(k, staged, per_block, one * per_block)
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_fn():
+    fn = load_library("hungarian").hungarian_forward
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+        ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def hungarian_cuda(cost: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
     """cost (M, Nq, Nt) float32, queries x targets; n_valid (M,) int32, the
     valid targets of each matrix (the first n_valid columns), read on the
-    device: contiguous CUDA tensors on one device, Nt <= Nq. Returns (M, Nt)
-    int32: for each valid target the query matched to it, -1 past n_valid.
-    Launches one kernel on the current stream and never synchronises."""
+    device: contiguous CUDA tensors on one device, Nt <= Nq <= MAX_QUERIES.
+    Returns (M, Nt) int32: for each valid target the query matched to it, -1
+    past n_valid. Launches one kernel on the current stream and never
+    synchronises."""
     if cost.dim() != 3:
         raise ValueError(f"cost must be (M, Nq, Nt), got {tuple(cost.shape)}")
     M, Nq, Nt = cost.shape
@@ -47,21 +107,20 @@ def hungarian_cuda(cost: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
         raise ValueError("hungarian_cuda takes CUDA tensors on one device")
     if not (cost.is_contiguous() and n_valid.is_contiguous()):
         raise ValueError("hungarian_cuda takes contiguous tensors")
-    if Nt > Nq:
-        raise ValueError(f"{Nt} targets for {Nq} queries: the assignment "
-                         "needs Nt <= Nq")
+    index = cost.device.index
+    plan = launch_plan(M, Nq, Nt, _n_sms(index))
     out = torch.empty((M, Nt), dtype=torch.int32, device=cost.device)
     if M == 0 or Nt == 0:
         return out
-    lib = _lib()
-    staged = int(lib.hungarian_smem_bytes(Nq, Nt, 1) <= MAX_SMEM_BYTES)
-    if lib.hungarian_smem_bytes(Nq, Nt, staged) > MAX_SMEM_BYTES:
-        raise ValueError(f"Nq={Nq} columns do not fit the kernel's shared "
-                         "memory")
-    with torch.cuda.device(cost.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.hungarian_forward(cost.data_ptr(), n_valid.data_ptr(),
-                                    out.data_ptr(), M, Nq, Nt, staged, stream)
+    forward = _forward_fn()
+    args = (cost.data_ptr(), n_valid.data_ptr(), out.data_ptr(), M, Nq, Nt,
+            plan.lane_columns, int(plan.staged), plan.per_block,
+            plan.smem_bytes)
+    if index == torch.cuda.current_device():
+        err = forward(*args, torch.cuda.current_stream(index).cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            err = forward(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"hungarian CUDA launch failed: cudaError {err}")
     hungarian_cuda.launches += 1

@@ -8,8 +8,13 @@
 // Pillow's libjpeg-turbo and libwebp (runtime/loader.py), and this file
 // carries the decoders Pillow cannot stand in for:
 //   - PNG: every colour type at 1-16 bits, interlaced or not, inflated
-//     with zlib (Pillow reduces 16-bit colour to 8 bits).
-//   - BMP: uncompressed 8 (palette), 24 and 32 bits.
+//     with zlib (Pillow reduces 16-bit colour to 8 bits); a colour PNG read
+//     as grey through libpng's png_set_rgb_to_gray as cv2 sets it up
+//     (rgb_to_grey_png), its gamma tables included at 8 bits.
+//   - BMP: uncompressed 8 (palette), 24 and 32 bits; read as grey through
+//     cv2's icvCvt_BGR2Gray (14-bit fixed point), or, for 32 bits with
+//     bit fields in a header of 56 bytes or more, the float32 weighted sum
+//     cv2 truncates (grey_14, grey_float).
 // Decoding raises nothing: every entry returns a status and writes the
 // reason of a failure into the caller's message buffer.
 //
@@ -100,12 +105,77 @@ bool unfilter(uint8_t* rows, int nrows, size_t rowbytes, int bpp) {
   return true;
 }
 
+// libpng's gamma lookup of 8-bit samples (png_build_8bit_table with
+// floating-point arithmetic): identity unless the gamma is significant.
+void gamma_table_8(int64_t g, uint16_t* table) {
+  const bool significant = g < 95000 || g > 105000;
+  for (int v = 0; v < 256; ++v)
+    table[v] = uint16_t(!significant || v == 0 || v == 255
+                            ? v
+                            : floor(255 * pow(v / 255., g * .00001) + .5));
+}
+
+int64_t reciprocal(int64_t a) { return int64_t(floor(1e10 / double(a) + .5)); }
+
+// cv2 reads a colour PNG as grey with png_set_rgb_to_gray(png, 1, 0.299,
+// 0.587): libpng's coefficients 9797 and 19234 (of 32768; blue the rest),
+// applied before its 16 -> 8 bit strip and after the alpha is stripped. A
+// pixel whose three samples are equal keeps them. Without a significant
+// gamma, 8 bits truncate and 16 bits round; with one (a gAMA far from 1 or
+// sRGB), 8-bit samples go through its to-linear and from-linear tables.
+// Overwrites s (n pixels of `chans` samples) with one grey sample a pixel.
+// Refused: an ICC or cICP profile, which libpng may read as sRGB, and a
+// significant gamma at 16 bits (libpng's 16-bit tables).
+Failure rgb_to_grey_png(std::vector<uint16_t>* s, size_t n, int chans,
+                        int depth, int64_t gama, bool srgb, bool profile) {
+  const int64_t rc = 9797, gc = 19234, bc = 32768 - rc - gc;
+  if (profile)
+    return {kUnsupported,
+            "unsupported: a colour PNG with an ICC or cICP profile read as "
+            "grey (libpng's profile checks are not reproduced)"};
+  if (gama < 16 || gama > 625000000) gama = 0;  // libpng ignores it
+  if (srgb && gama && gama != 45455)
+    return {kUnsupported,
+            "unsupported: a colour PNG read as grey with both sRGB and a "
+            "gAMA of another gamma"};
+  const int64_t file_gamma = srgb ? 45455 : (gama ? gama : 100000);
+  const bool significant = file_gamma < 95000 || file_gamma > 105000;
+  if (significant && depth == 16)
+    return {kUnsupported,
+            "unsupported: a 16-bit colour PNG with a gamma read as grey "
+            "(libpng's 16-bit gamma tables are not reproduced)"};
+  uint16_t to1[256], from1[256];
+  if (significant) {
+    const int64_t screen = reciprocal(file_gamma);
+    gamma_table_8(reciprocal(file_gamma), to1);
+    gamma_table_8(reciprocal(screen), from1);
+  }
+  std::vector<uint16_t>& v = *s;
+  for (size_t i = 0; i < n; ++i) {
+    const int64_t r = v[i * chans], g = v[i * chans + 1],
+                  b = v[i * chans + 2];
+    int64_t y;
+    if (r == g && r == b)
+      y = r;
+    else if (depth == 16)
+      y = (rc * r + gc * g + bc * b + 16384) >> 15;
+    else if (significant)
+      y = from1[(rc * to1[r] + gc * to1[g] + bc * to1[b] + 16384) >> 15];
+    else
+      y = (rc * r + gc * g + bc * b) >> 15;
+    v[i] = uint16_t(y);
+  }
+  return {kOk, ""};
+}
+
 Failure decode_png(const uint8_t* buf, size_t len, int mode, Image* img) {
   static const uint8_t sig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
   if (len < 8 || memcmp(buf, sig, 8) != 0) return {kUnknown, "not a PNG"};
   size_t pos = 8;
   int W = 0, H = 0, depth = 0, ctype = -1, interlace = 0;
   std::vector<uint8_t> idat, palette;
+  int64_t gama = 0;              // the gAMA chunk's value, 1e5 = gamma 1
+  bool srgb = false, profile = false;
   bool ended = false;
   while (pos + 12 <= len) {
     uint32_t n = be32(buf + pos);
@@ -122,6 +192,12 @@ Failure decode_png(const uint8_t* buf, size_t len, int mode, Image* img) {
       interlace = d[12];
     } else if (!memcmp(type, "PLTE", 4)) {
       palette.assign(d, d + n);
+    } else if (!memcmp(type, "gAMA", 4) && n == 4) {
+      gama = int64_t(be32(d));
+    } else if (!memcmp(type, "sRGB", 4)) {
+      srgb = true;
+    } else if (!memcmp(type, "iCCP", 4) || !memcmp(type, "cICP", 4)) {
+      profile = true;
     } else if (!memcmp(type, "IDAT", 4)) {
       idat.insert(idat.end(), d, d + n);
     } else if (!memcmp(type, "IEND", 4)) {
@@ -222,43 +298,45 @@ Failure decode_png(const uint8_t* buf, size_t len, int mode, Image* img) {
   const bool grey = out_chans <= 2;
   img->w = W;
   img->h = H;
-  if (mode == kColor || mode == kGray) {
-    // 16 -> 8 bits by the high byte (libpng's png_set_strip_16), alpha
-    // dropped
-    if (mode == kGray && !grey)
-      return {kUnsupported,
-              "unsupported: a colour PNG read as a grey image (cv2's "
-              "conversion is not reproduced)"};
-    const int c = mode == kColor ? 3 : 1;
-    img->c = c;
-    img->bytes = 1;
-    img->data.resize(n * c);
+  if (mode == kGray || mode == kAnyDepth) {
+    // cv2 asks libpng for grey: rgb_to_gray on a colour source, alpha
+    // stripped; 16 bits cut to the high byte after it unless kAnyDepth
+    if (!grey) {
+      Failure f = rgb_to_grey_png(&s, n, out_chans, sdepth, gama, srgb,
+                                  profile);
+      if (f.code != kOk) return f;
+    }
+    const int step = grey ? out_chans : 1;
+    const bool wide = sdepth == 16 && mode == kAnyDepth;
+    img->c = 1;
+    img->bytes = wide ? 2 : 1;
+    img->data.resize(n * img->bytes);
     for (size_t i = 0; i < n; ++i) {
-      const uint16_t* px = &s[i * out_chans];
-      for (int k = 0; k < c; ++k) {
-        unsigned v = px[grey ? 0 : k];
-        img->data[i * c + k] = uint8_t(sdepth == 16 ? v >> 8 : v);
-      }
+      uint16_t v = s[i * step];
+      if (wide)
+        memcpy(&img->data[i * 2], &v, 2);
+      else
+        img->data[i] = uint8_t(sdepth == 16 ? v >> 8 : v);
     }
     return {kOk, ""};
   }
-  if (mode == kAnyDepth && !grey)
-    return {kUnsupported,
-            "unsupported: a colour PNG read as grey at its depth"};
-  if (mode == kUnchanged && out_chans == 2)
-    return {kUnsupported, "unsupported: a grey + alpha PNG read unchanged"};
-  const int c = mode == kAnyDepth ? 1 : out_chans;
+  // colour: 16 -> 8 bits by the high byte (libpng's png_set_strip_16), alpha
+  // dropped; unchanged: the stored samples, a grey + alpha image as RGBA
+  // (cv2 asks libpng for grey to RGB when it keeps the alpha)
+  const int c = mode == kColor ? 3 : (out_chans == 2 ? 4 : out_chans);
   img->c = c;
-  img->bytes = sdepth == 16 ? 2 : 1;
+  img->bytes = mode == kColor || sdepth != 16 ? 1 : 2;
   img->data.resize(n * c * img->bytes);
-  for (size_t i = 0; i < n; ++i)
+  for (size_t i = 0; i < n; ++i) {
+    const uint16_t* px = &s[i * out_chans];
     for (int k = 0; k < c; ++k) {
-      uint16_t v = s[i * out_chans + k];
+      uint16_t v = grey ? (k == 3 ? px[1] : px[0]) : px[k];
       if (img->bytes == 2)
         memcpy(&img->data[(i * c + k) * 2], &v, 2);
       else
-        img->data[i * c + k] = uint8_t(v);
+        img->data[i * c + k] = uint8_t(sdepth == 16 ? v >> 8 : v);
     }
+  }
   return {kOk, ""};
 }
 
@@ -266,6 +344,23 @@ Failure decode_png(const uint8_t* buf, size_t len, int mode, Image* img) {
 inline uint32_t le32(const uint8_t* p) {
   return uint32_t(p[0]) | (uint32_t(p[1]) << 8) | (uint32_t(p[2]) << 16) |
          (uint32_t(p[3]) << 24);
+}
+
+// cv2's icvCvt_BGR2Gray: (1868 B + 9617 G + 4899 R) / 2^14, rounded.
+inline uint8_t grey_14(const uint8_t* bgr) {
+  return uint8_t((1868 * bgr[0] + 9617 * bgr[1] + 4899 * bgr[2] + 8192) >> 14);
+}
+
+// What cv2 gives for a 32-bit BMP with bit fields and a header of 56 bytes
+// or more: floor((0.299f R + 0.587f G) + 0.114f B) in float32, each product
+// and sum rounded to float32. The products are taken in double, where they
+// are exact, and rounded by the casts, so that no compiler fuses them.
+inline uint8_t grey_float(const uint8_t* bgr) {
+  const float r = float(double(0.299f) * bgr[2]);
+  const float g = float(double(0.587f) * bgr[1]);
+  const float b = float(double(0.114f) * bgr[0]);
+  const float rg = r + g;
+  return uint8_t(floorf(rg + b));
 }
 
 Failure decode_bmp(const uint8_t* buf, size_t len, int mode, Image* img) {
@@ -291,13 +386,16 @@ Failure decode_bmp(const uint8_t* buf, size_t len, int mode, Image* img) {
     if (14 + hsize + 4 * size_t(ncolors) > len)
       return {kCorrupt, "corrupt BMP: palette"};
   }
-  if (mode == kGray || mode == kAnyDepth)
-    return {kUnsupported, "unsupported: a BMP read as a grey image"};
+  // cv2 turns a BMP grey row by row as it decodes: 14-bit fixed point,
+  // except for 32 bits with bit fields in a header that holds an alpha
+  // mask (56 bytes or more)
+  const bool to_grey = mode == kGray || mode == kAnyDepth;
+  const bool float_grey = bits == 32 && comp == 3 && hsize >= 56;
   img->w = W;
   img->h = H;
-  img->c = 3;
+  img->c = to_grey ? 1 : 3;
   img->bytes = 1;
-  img->data.resize(size_t(W) * H * 3);
+  img->data.resize(size_t(W) * H * img->c);
   for (int y = 0; y < H; ++y) {
     const uint8_t* r = buf + data_off + stride * (bottom_up ? H - 1 - y : y);
     for (int x = 0; x < W; ++x) {
@@ -307,6 +405,11 @@ Failure decode_bmp(const uint8_t* buf, size_t len, int mode, Image* img) {
         bgr = pal + 4 * r[x];
       } else {
         bgr = r + size_t(x) * (bits / 8);
+      }
+      if (to_grey) {
+        img->data[size_t(y) * W + x] =
+            float_grey ? grey_float(bgr) : grey_14(bgr);
+        continue;
       }
       uint8_t* o = &img->data[(size_t(y) * W + x) * 3];
       o[0] = bgr[2];

@@ -21,7 +21,10 @@ pool) run in parallel.
   ("color": RGB; "gray"; "anydepth": grey at the stored depth;
   "unchanged"), a JPEG's EXIF orientation applied (except "unchanged"); an
   unreadable or unsupported file raises ``InvalidSampleError`` with the
-  reason (a truncated JPEG too, which cv2 returns with grey rows).
+  reason. A JPEG cut short after its header decodes as cv2's does: the rows
+  that arrived, then libjpeg's fill; a CMYK JPEG through cv2's CMYK -> BGR;
+  a colour image read as grey through the conversion cv2 applies to its
+  format (``aloloader.cpp`` for PNG and BMP, ``_grey15_of_rgb`` for WebP).
 - ``NativeImageLoader``: threaded decode + bilinear resize + normalize of
   batches (the JAX loader's arithmetic), into one float32 NHWC tensor.
 - ``fill_poly``: ``cv2.fillPoly(mask, [xy], 1)`` on a uint8 mask.
@@ -32,6 +35,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import io
 import os
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -128,35 +132,81 @@ def _format(path: str) -> str:
     return "native"
 
 
+# what libjpeg's stdio source hands out, again and again, once a file has
+# ended: cv2 decodes a truncated JPEG followed by these bytes. Enough copies
+# to complete the longest marker segment (65,535 bytes) the cut may fall in.
+EOI = b"\xff\xd9"
+EOI_FILL = EOI * 32769
+
+
+def _grey15_of_rgb(rgb: np.ndarray) -> np.ndarray:
+    """cv2's ``cvtColor(COLOR_BGR2GRAY)`` of an (H, W, 3) uint8 RGB image,
+    its 15-bit fixed point: what ``cv2.imread`` gives for a colour WebP read
+    as grey (it decodes in colour first)."""
+    r, g, b = (rgb[..., k].astype(np.int32) for k in range(3))
+    return ((9798 * r + 19235 * g + 3735 * b + (1 << 14)) >> 15
+            ).astype(np.uint8)
+
+
+def _rgb_of_cmyk(cmyk: np.ndarray) -> np.ndarray:
+    """cv2's ``icvCvt_CMYK2BGR`` of libjpeg's CMYK output (Adobe's inverted
+    convention, as stored), as RGB: each of C, M, Y becomes
+    ``k - ((255 - x) * k >> 8)``."""
+    x = cmyk.astype(np.int32)
+    k = x[..., 3:]
+    return (k - ((255 - x[..., :3]) * k >> 8)).astype(np.uint8)
+
+
+def _grey14_of_rgb(rgb: np.ndarray) -> np.ndarray:
+    """cv2's ``icvCvt_BGR2Gray`` (14-bit fixed point) of an (H, W, 3) uint8
+    RGB image: the grey of a CMYK JPEG after ``_rgb_of_cmyk``."""
+    r, g, b = (rgb[..., k].astype(np.int32) for k in range(3))
+    return ((4899 * r + 9617 * g + 1868 * b + (1 << 13)) >> 14
+            ).astype(np.uint8)
+
+
 def _decode_pillow(path: str, mode: str, fmt: str) -> torch.Tensor:
-    """A JPEG (8-bit grey or YCbCr) or WebP as ``cv2.imread`` gives it. A
-    JPEG's "gray" comes from libjpeg's own grey output, as cv2's does; a
-    colour WebP is not turned grey (cv2's conversion is not Pillow's)."""
+    """A JPEG (8-bit grey, YCbCr or CMYK) or WebP as ``cv2.imread`` gives
+    it. A JPEG's "gray" comes from libjpeg's own grey output, as cv2's does.
+    The JPEG's bytes reach Pillow followed by EOI markers, as libjpeg's
+    stdio source hands them out past the end of a file for cv2: a truncated
+    file then decodes to the same pixels, and a whole one stops at its own
+    EOI; Pillow's process-wide ``LOAD_TRUNCATED_IMAGES`` is left alone."""
     def refuse(why):
         return InvalidSampleError(f"image decoder: cannot read {path}: {why}")
+    grey = mode in ("gray", "anydepth")
     try:
-        with Image.open(path) as im:
+        with open(path, "rb") as f:
+            data = f.read()
+        if fmt == "JPEG":
+            data += EOI_FILL
+        with Image.open(io.BytesIO(data)) as im:
             if im.format != fmt.upper():
                 raise refuse(f"unknown format: {im.format}")
-            if fmt == "JPEG" and im.mode not in ("L", "RGB"):
+            if fmt == "JPEG" and im.mode not in ("L", "RGB", "CMYK"):
                 raise refuse(f"unsupported: a JPEG in mode {im.mode}")
-            grey = mode in ("gray", "anydepth")
-            if grey and fmt == "JPEG":
+            if grey and im.mode == "RGB" and fmt == "JPEG":
                 im.draft("L", im.size)
             orientation = 1
             if fmt == "JPEG" and mode != "unchanged":
                 orientation = int(im.getexif().get(0x0112, 1))
             im.load()
-            if grey and im.mode != "L":
-                raise refuse(f"unsupported: grey of a colour {fmt}")
-            if mode == "color" and im.mode != "RGB":
-                im = im.convert("RGB")
             arr = np.array(im)
+            src = im.mode
     except InvalidSampleError:
         raise
     except Exception as e:      # Pillow's errors: OSError, SyntaxError, ...
         raise refuse(f"corrupt {fmt}: {e}") from e
-    img = torch.from_numpy(arr if arr.ndim == 3 else arr[..., None])
+    if src == "CMYK":           # Pillow inverts it on reading: undo that
+        arr = _rgb_of_cmyk(255 - arr)
+        if grey:
+            arr = _grey14_of_rgb(arr)
+    elif grey and arr.ndim == 3:
+        arr = _grey15_of_rgb(arr[..., :3])
+    elif mode == "color" and src != "RGB":
+        arr = arr[..., None].repeat(3, -1) if arr.ndim == 2 else arr[..., :3]
+    img = torch.from_numpy(np.ascontiguousarray(
+        arr if arr.ndim == 3 else arr[..., None]))
     return img if orientation == 1 else _orient(img, orientation)
 
 

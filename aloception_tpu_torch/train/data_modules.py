@@ -67,7 +67,7 @@ class CocoDetection2Detr:
 
     def __init__(self, batch_size: int = 2, num_workers: int = 2,
                  train_on_val: bool = False, sample: bool = False,
-                 size: Optional[Tuple[int, int]] = (480, 640),
+                 size: Optional[Tuple[int, int]] = None,
                  scales: Optional[Sequence[int]] = None,
                  max_targets: int = 100,
                  classes: Optional[List[str]] = None, seed: int = 0,

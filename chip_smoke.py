@@ -48,8 +48,10 @@
    differing targets reported; scipy's optimal total on integer costs with
    ties) at the
    training path's 48 matrices of 300 queries and at DETR's 8 of 100, and
-   times it at (48, 300, 7) and (48, 300, 100) beside the plain version and
-   its bound.
+   times it at the calls the training paths launch (``HUNGARIAN_TIMED``:
+   Deformable bs8, DETR bs16, the multi-scale bs2 recipe) by CUDA graphs
+   and eager launches, beside the plain version, its bound and the serial
+   chain's us a step.
 7. The training gate: one float32 Deformable-DETR-R50-refine train step at
    batch 2, 640x640, dropout 0, with the MSDA kernel forward against the
    plain forward (losses, the matched queries, every gradient: the
@@ -251,9 +253,15 @@ HUNGARIAN_CASES = {
     "detr": (8, 100, 100, (0, 1, 7, 37, 100), False),
     "detr_ties": (8, 100, 100, (0, 1, 7, 37, 100), True),
 }
-# the training path's call: 6 decoder outputs x batch 8 matrices of 300
-# queries; timed at a few targets and at the capacity of 100
-HUNGARIAN_TIMED = ((48, 300, 7), (48, 300, 100))
+# the calls the training paths launch, timed: (matrices, queries, targets,
+# n_valid drawn in turn from): Deformable-DETR-R50 at batch 8 (6 decoder
+# outputs x 8, 300 queries) at a few targets and at the capacity of 100;
+# DETR-R50 at batch 16 (6 x 16, 100 queries) at 7 and at 100 targets; the
+# multi-scale recipe at batch 2 (6 x 2, 300 queries, COCO's <= 40 objects)
+HUNGARIAN_TIMED = ((48, 300, 7, (7,)), (48, 300, 100, (100,)),
+                   (96, 100, 100, (7,)), (96, 100, 100, (100,)),
+                   (12, 300, 100, (40, 13, 2, 27)))
+HUNGARIAN_HEADLINE = (48, 300, 100, (100,))
 # training: Deformable-DETR-R50-refine at batch 8, 640 x 640, float32; one
 # warm-up step, then the timed ones; a loss that falls on a repeated batch;
 # the fp32 gate of the kernel forward against the plain one at batch 2
@@ -954,15 +962,56 @@ def hungarian_inputs(M, nq, nt, choices, ties, seed):
     return cost, n_valid
 
 
+def hungarian_tag(shape):
+    M, nq, nt, choices = shape
+    return f"({M}, {nq}, {nt}) n_valid {'/'.join(map(str, choices))}"
+
+
+def hungarian_times(fn, cost, n_valid):
+    """``fn``'s device ms a call by CUDA graphs and by eager launches on
+    ``cost``/``n_valid`` (CPU tensors, the call's inputs), the bound for
+    these inputs and the serial chain: the dependent augmenting steps of
+    each matrix (``jv_solve``), the longest one's and us of kernel time a
+    step of it."""
+    from aloception_tpu_torch.ops.hungarian import jv_solve
+    M, nq, nt = cost.shape
+    ms = graph_ms(fn, iters=10, reps=3)
+    eager_ms = cuda_ms(fn, iters=10, warmup=2)
+    # the work these inputs need: each augmenting step relaxes the unused
+    # columns (two subtractions and a compare) and moves the potentials (a
+    # subtraction) over all Nq columns; bytes: the n_valid targets of each
+    # query read once, n_valid, the (M, Nt) output written once
+    steps = [jv_solve(cost[k, :, :int(n)].T.numpy())[1] if n else 0
+             for k, n in enumerate(n_valid.tolist())]
+    nbytes = 4 * (nq * int(n_valid.sum()) + M + M * nt)
+    flops = 4 * sum(steps) * nq
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return dict(ms=ms, eager_ms=eager_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, flops=flops, max_steps=max(steps),
+                mean_steps=sum(steps) / M,
+                us_per_step=ms * 1e3 / max(1, max(steps)))
+
+
+def hungarian_line(row):
+    return (f"kernel {row['ms']:.4f} ms (graph), {row['eager_ms']:.4f} ms "
+            f"(eager launches); bound {row['bound_ms'] * 1e3:.3f} us by "
+            f"{row['bound_by']} ({row['bytes'] / 1e6:.3f} MB, "
+            f"{row['flops'] / 1e6:.2f} M fp32 ops), {row['bound_ms'] / row['ms']:.2%} "
+            f"of it; serial chain: {row['max_steps']} dependent augmenting "
+            f"steps in the longest matrix (mean {row['mean_steps']:.1f}), "
+            f"{row['us_per_step']:.3f} us of kernel time a step")
+
+
 def hungarian_phase(device):
     """The Hungarian kernel against its plain version: identical
     assignments in every case, scipy's optimal total on the tie cases; its
-    time at the training path's shape beside the plain version's and its
-    bound."""
+    times at the training paths' calls beside the plain version's, its
+    bound and the serial chain."""
     from scipy.optimize import linear_sum_assignment
     from aloception_tpu_torch.ops.cuda import hungarian_cuda
-    from aloception_tpu_torch.ops.hungarian import (hungarian,
-                                                    hungarian_torch, jv_solve)
+    from aloception_tpu_torch.ops.hungarian import hungarian, hungarian_torch
 
     # the largest difference of a matched query index between the kernel
     # and the plain version, and the count of targets matched differently,
@@ -997,37 +1046,19 @@ def hungarian_phase(device):
               f"{'; totals equal scipy optimum' if ties else ''}")
 
     timed = {}
-    for M, nq, nt in HUNGARIAN_TIMED:
-        cost, n_valid = hungarian_inputs(M, nq, nt, (nt,), False, seed=7)
-        c_d, n_d = cost.to(device), n_valid.to(device)
+    for shape in HUNGARIAN_TIMED:
+        M, nq, nt, choices = shape
+        cost, n_valid = hungarian_inputs(M, nq, nt, choices, False, seed=7)
         t0 = time.perf_counter()
         want = hungarian_torch(cost, n_valid)
         plain_ms = (time.perf_counter() - t0) * 1e3
-        held(hungarian_cuda(c_d, n_d).cpu(), want, f"({M}, {nq}, {nt})")
-        ms = graph_ms(lambda: hungarian_cuda(c_d, n_d), iters=5, reps=2)
-        eager_ms = cuda_ms(lambda: hungarian_cuda(c_d, n_d), iters=5,
-                           warmup=1)
-        # the work these inputs need: each augmenting step relaxes the
-        # unused columns (two subtractions and a compare) and moves the
-        # potentials (a subtraction) over all Nq columns
-        steps = [jv_solve(cost[k, :, :nt].T.numpy())[1] for k in range(M)]
-        nbytes = cost.numel() * 4 + M * 4 + M * nt * 4
-        flops = 4 * sum(steps) * nq
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
-        bound_ms = max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"hungarian ({M}, {nq}, {nt}): kernel {ms:.4f} ms (graph), "
-              f"{eager_ms:.4f} ms (eager launches); plain version on the host "
-              f"{plain_ms:.2f} ms; bound {bound_ms * 1e3:.3f} us by "
-              f"{bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e6:.2f} M fp32 "
-              f"ops, {bound_ms / ms:.2%} of it); serial chain: "
-              f"{max(steps)} dependent augmenting steps in the longest matrix "
-              f"(mean {sum(steps) / M:.1f}), {ms * 1e3 / max(steps):.3f} us "
-              f"of kernel time per step")
-        timed[(M, nq, nt)] = dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                                  bound_ms=bound_ms, bound_by=bound_by,
-                                  max_steps=max(steps))
+        c_d, n_d = cost.to(device), n_valid.to(device)
+        held(hungarian_cuda(c_d, n_d).cpu(), want, hungarian_tag(shape))
+        row = hungarian_times(lambda: hungarian_cuda(c_d, n_d), cost, n_valid)
+        row["plain_ms"] = plain_ms
+        print(f"hungarian {hungarian_tag(shape)}: {hungarian_line(row)}; "
+              f"plain version on the host {plain_ms:.2f} ms")
+        timed[shape] = row
     print(f"hungarian kernel vs plain version over every case and timed "
           f"shape: max query-index difference {diff['max_abs_err']}, "
           f"{diff['mismatched']} targets matched differently")
@@ -3912,7 +3943,7 @@ def main():
 
     enc, dec = sites["encoder"], sites["decoder"]
     msda_train, msda_backward, hung_train = train["launches"]
-    hung_full = hung[HUNGARIAN_TIMED[-1]]
+    hung_full = hung[HUNGARIAN_HEADLINE]
     print(json.dumps({"kernels": [{
         "name": "ms_deform_attn",
         "route": "cuda",
@@ -3977,7 +4008,7 @@ def main():
         "bound_ms": hung_full["bound_ms"], "bound_by": hung_full["bound_by"],
         # no PyTorch call solves an assignment
         "library_ms": None,
-        "timed": {"x".join(map(str, k)): v for k, v in hung.items()},
+        "timed": {hungarian_tag(k): v for k, v in hung.items()},
     }], "train": {"deformable_step_ms": train["step_ms"],
                   "deformable_frames_ms": train["frames_ms"],
                   "detr_frames_ms": detr_train["frames_ms"],

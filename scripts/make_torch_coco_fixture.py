@@ -8,8 +8,16 @@
 - PNGs: 8-bit RGB, RGBA and grey, a 16-bit grey one (KITTI's disparity
   format) and a panoptic id PNG (id = R + 256 G + 256^2 B);
 - ``corrupt.jpg``, a JPEG cut inside its header;
+- ``reads/``: the reads cv2 serves with a conversion of its own, each held
+  against cv2's decode: a baseline and a progressive JPEG cut short (cv2
+  decodes the rows that arrived, then libjpeg's fill), a CMYK JPEG
+  (written by Pillow, with Adobe's marker), colour WebPs with and without
+  alpha, a 16-bit colour PNG, a colour PNG with an sRGB chunk (libpng's
+  gamma tables), a grey + alpha PNG, and 24-bit, 32-bit (bit fields) and
+  palette BMPs, read as grey and as stored;
 - ``decodes.npz``: what ``cv2.imread`` gives for each file, keyed
-  ``<file>:<mode>`` with mode "color" (RGB), "gray" or "anydepth", each
+  ``<file>:<mode>`` with mode "color" (RGB), "gray", "anydepth" or
+  "unchanged" (RGB(A) order), each
   stored as differences along W (modulo its integer type), which deflate
   better; ``aloception_tpu_torch.utils.coco_fixture.read_decodes`` reads
   them back.
@@ -20,9 +28,12 @@ which keeps the files small. The card's decode gate (``chip_smoke.py``) and
 """
 
 import os
+import struct
+import zlib
 
 import cv2
 import numpy as np
+from PIL import Image
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tests",
                    "fixtures", "torch_coco")
@@ -77,7 +88,7 @@ def main():
             if img is None:
                 raise RuntimeError(f"cv2 cannot read {path}")
             if img.ndim == 3:
-                img = img[..., ::-1]
+                img = img[..., [2, 1, 0, 3][:img.shape[2]]]
             decodes[f"{name}:{mode}"] = np.diff(img, axis=1, prepend=0
                                                 ).astype(img.dtype)
 
@@ -93,11 +104,11 @@ def main():
 
     img = scene(120, 160, rng)
     cv2.imwrite(os.path.join(OUT, "rgb_120x160.png"), img)
-    record("rgb_120x160.png", (color,))
+    record("rgb_120x160.png", (color, gray))
     alpha = rng.randint(0, 256, (120, 160, 1)).astype(np.uint8)
     cv2.imwrite(os.path.join(OUT, "rgba_120x160.png"),
                 np.concatenate([scene(120, 160, rng), alpha], -1))
-    record("rgba_120x160.png", (color,))
+    record("rgba_120x160.png", (color, gray))
     cv2.imwrite(os.path.join(OUT, "grey_96x128.png"),
                 cv2.cvtColor(scene(96, 128, rng), cv2.COLOR_BGR2GRAY))
     record("grey_96x128.png", (color, gray))
@@ -120,10 +131,98 @@ def main():
         head = f.read(300)
     with open(os.path.join(OUT, "corrupt.jpg"), "wb") as f:
         f.write(head[:120])
+    reads(np.random.RandomState(2025), record)
     np.savez_compressed(os.path.join(OUT, "decodes.npz"), **decodes)
-    total = sum(os.path.getsize(os.path.join(OUT, n)) for n in os.listdir(OUT))
-    print(f"wrote {len(os.listdir(OUT))} files, {total / 2**20:.2f} MiB, to "
+    files = [os.path.join(d, n) for d, _, names in os.walk(OUT)
+             for n in names]
+    total = sum(os.path.getsize(f) for f in files)
+    print(f"wrote {len(files)} files, {total / 2**20:.2f} MiB, to "
           f"{os.path.normpath(OUT)}")
+
+
+def png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def bmp_bytes(rows, w: int, h: int, bits: int, palette: bytes = b"") -> bytes:
+    """An uncompressed bottom-up BMP with a 40-byte header."""
+    stride = (w * bits + 31) // 32 * 4
+    data = b"".join(r.ljust(stride, b"\0") for r in rows[::-1])
+    off = 54 + len(palette)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, bits, 0, len(data), 2835,
+                       2835, len(palette) // 4, 0)
+    return (b"BM" + struct.pack("<IHHI", off + len(data), 0, 0, off) + info
+            + palette + data)
+
+
+def reads(rng: np.random.RandomState, record):
+    """The files of ``reads/`` and their cv2 decodes."""
+    os.makedirs(os.path.join(OUT, "reads"), exist_ok=True)
+
+    def path(name):
+        return os.path.join(OUT, "reads", name)
+
+    color = ("color", cv2.IMREAD_COLOR)
+    gray = ("gray", cv2.IMREAD_GRAYSCALE)
+    anydepth = ("anydepth", cv2.IMREAD_ANYDEPTH)
+    unchanged = ("unchanged", cv2.IMREAD_UNCHANGED)
+    for name, frac in (("baseline_480x640.jpg", 2 / 3),
+                       ("progressive_427x640.jpg", 1 / 2)):
+        with open(os.path.join(OUT, name), "rb") as f:
+            data = f.read()
+        with open(path(f"cut_{name}"), "wb") as f:
+            f.write(data[:int(len(data) * frac)])
+        record(f"reads/cut_{name}", (color, gray))
+    # Pillow writes CMYK with Adobe's marker, inverted as Adobe stores it
+    cmyk = np.concatenate([scene(120, 160, rng),
+                           rng.randint(0, 120, (120, 160, 1))], -1)
+    Image.fromarray(cmyk.astype(np.uint8), "CMYK").save(
+        path("cmyk_120x160.jpg"), quality=90)
+    record("reads/cmyk_120x160.jpg", (color, gray, unchanged))
+    img = scene(120, 160, rng)
+    cv2.imwrite(path("rgb_120x160.webp"), img, [cv2.IMWRITE_WEBP_QUALITY, 80])
+    record("reads/rgb_120x160.webp", (gray, anydepth))
+    alpha = rng.randint(0, 256, (120, 160, 1)).astype(np.uint8)
+    cv2.imwrite(path("rgba_120x160.webp"),
+                np.concatenate([scene(120, 160, rng), alpha], -1),
+                [cv2.IMWRITE_WEBP_QUALITY, 101])
+    record("reads/rgba_120x160.webp", (gray, unchanged))
+    y, x = np.mgrid[0:60, 0:80]
+    rgb16 = np.stack([x * 800, y * 1000, (x * y * 37) % 65536], -1)
+    rgb16[:4] = rgb16[:4, :, :1]          # equal samples stay as they are
+    cv2.imwrite(path("rgb16_60x80.png"), rgb16.astype(np.uint16))
+    record("reads/rgb16_60x80.png", (gray, anydepth))
+    # an sRGB chunk gives libpng a gamma: its rgb_to_gray goes through tables
+    cv2.imwrite(path("srgb_120x160.png"), scene(120, 160, rng))
+    with open(path("srgb_120x160.png"), "rb") as f:
+        data = f.read()
+    with open(path("srgb_120x160.png"), "wb") as f:
+        f.write(data[:33] + png_chunk(b"sRGB", b"\0") + data[33:])
+    record("reads/srgb_120x160.png", (color, gray))
+    grey = cv2.cvtColor(scene(96, 128, rng), cv2.COLOR_BGR2GRAY)
+    ga = np.stack([grey, rng.randint(0, 256, (96, 128)).astype(np.uint8)], -1)
+    raw = b"".join(b"\0" + r.tobytes() for r in ga)
+    with open(path("ga_96x128.png"), "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + png_chunk(b"IHDR", struct.pack(">IIBBBBB", 128, 96, 8, 4, 0,
+                                                 0, 0))
+                + png_chunk(b"IDAT", zlib.compress(raw))
+                + png_chunk(b"IEND", b""))
+    record("reads/ga_96x128.png", (color, gray, unchanged))
+    cv2.imwrite(path("rgb_120x160.bmp"), scene(120, 160, rng))
+    record("reads/rgb_120x160.bmp", (gray, anydepth))
+    # cv2 writes 4 channels as 32 bits with bit fields and a 124-byte header
+    cv2.imwrite(path("bgra_120x160.bmp"), np.concatenate(
+        [scene(120, 160, rng), alpha], -1))
+    record("reads/bgra_120x160.bmp", (color, gray))
+    palette = rng.randint(0, 256, (256, 4)).astype(np.uint8)
+    palette[:, 3] = 0
+    index = rng.randint(0, 256, (96, 128)).astype(np.uint8)
+    with open(path("palette_96x128.bmp"), "wb") as f:
+        f.write(bmp_bytes([r.tobytes() for r in index], 128, 96, 8,
+                          palette.tobytes()))
+    record("reads/palette_96x128.bmp", (color, gray))
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@ directories written in ``tmp_path`` from the image fixtures
 (``aloception_tpu_torch/utils/coco_fixture.py``): COCO detection (with
 masks, class filtering and the dropped crowd object), COCO panoptic and
 LVIS ``getitem`` (images equal, boxes within 1e-6, labels and masks equal),
-merge and from-directory datasets, the dataset config, the loaders' order
-and the retry on an unreadable sample."""
+merge and from-directory datasets, the dataset config, the loaders' order,
+the retry on an unreadable sample, a truncated image read as a sample, and
+the data module's default geometry."""
 
 import os
 import shutil
@@ -226,6 +227,38 @@ def test_retry_steps_over_an_unreadable_image(coco_dir, tmp_path):
                                    retry_offset=0, max_retry_on_error=2)
     with pytest.raises(tds.base_dataset.InvalidSampleError):
         bad[1]
+
+
+def test_truncated_image_is_a_sample_as_in_jax(coco_dir, tmp_path):
+    """A JPEG cut short is read as cv2 reads it, so both packages return
+    the same sample and neither retries."""
+    root = str(tmp_path / "coco")
+    shutil.copytree(coco_dir, root)
+    name = sorted(os.listdir(os.path.join(root, "val2017")))[1]
+    data = (FIXTURES / "progressive_427x640.jpg").read_bytes()
+    with open(os.path.join(root, "val2017", name), "wb") as f:
+        f.write(data[:len(data) // 2])
+    kw = dict(split=tds.Split.VAL, dataset_dir=root, retry_offset=1)
+    got = tds.CocoDetectionDataset(**kw)
+    want = jds.CocoDetectionDataset(**{**kw, "split": jds.Split.VAL})
+    same_item(got.getitem(1), want.getitem(1), masks=False)
+    same_item(got[1], want[1], masks=False)
+
+
+def test_coco_detection2detr_defaults_to_multiscale():
+    """``CocoDetection2Detr()`` takes the JAX default, the multi-scale
+    geometry (``size=None``): the same transforms as the JAX module's."""
+    from aloception_tpu.train import CocoDetection2Detr as JaxDM
+    from aloception_tpu_torch.train import CocoDetection2Detr
+    got, want = CocoDetection2Detr(sample=True), JaxDM(sample=True)
+    assert got.size is None and want.size is None
+
+    def names(compose):
+        return [type(t).__name__ for t in compose.transforms]
+    assert names(got.train_transform) == names(want.train_transform) == [
+        "RandomHorizontalFlip", "RandomSelect"]
+    assert type(got.val_transform).__name__ == \
+        type(want.val_transform).__name__ == "RandomResizeWithAspectRatio"
 
 
 def test_loader_raises_a_sample_error_in_order(coco_dir, tmp_path):

@@ -5,7 +5,10 @@ seeded files of every JPEG, WebP, PNG and BMP variant), EXIF orientation,
 the polygon fill equal to ``cv2.fillPoly``, decode + resize + normalize
 equal to the JAX ``NativeImageLoader``, the failure mask, and the
 ``Frame(path)``, ``Mask(path)`` and PNG ``Disparity`` readers against the
-JAX package's (tolerance 0: the same integers, the same float arithmetic)."""
+JAX package's (tolerance 0: the same integers, the same float arithmetic).
+The reads cv2 serves with conversions of its own (truncated and CMYK JPEGs,
+colour WebP, PNG and BMP read as grey, grey + alpha PNG as stored) are held
+bit-equal to cv2 too."""
 
 import os
 import struct
@@ -123,9 +126,7 @@ def test_png_equals_cv2(tmp_path, dtype, channels):
         path = tmp_path / f"{hw[0]}.png"
         cv2.imwrite(str(path), img if channels > 1 else img[..., 0],
                     [cv2.IMWRITE_PNG_COMPRESSION, int(rng.randint(10))])
-        modes = ["color", "unchanged"] + (["gray", "anydepth"]
-                                          if channels == 1 else [])
-        for mode in modes:
+        for mode in ("color", "unchanged", "gray", "anydepth"):
             assert_same(decode(str(path), mode), cv2_read(path, mode))
 
 
@@ -169,10 +170,59 @@ def test_interlaced_png_equals_cv2(tmp_path):
 
 @pytest.mark.parametrize("grey", [False, True])
 def test_bmp_equals_cv2(tmp_path, grey):
+    """8-bit (grey palette) and 24-bit BMPs, in colour and read as grey
+    (cv2's 14-bit fixed point)."""
     img = scene(21, 31, seed=3)
     cv2.imwrite(str(tmp_path / "t.bmp"),
                 cv2.cvtColor(img, cv2.COLOR_RGB2GRAY) if grey else img)
-    assert_same(decode(str(tmp_path / "t.bmp")), cv2_read(tmp_path / "t.bmp"))
+    for mode in ("color", "gray", "anydepth"):
+        assert_same(decode(str(tmp_path / "t.bmp"), mode),
+                    cv2_read(tmp_path / "t.bmp", mode))
+
+
+def bmp_file(path, img, bits, hsize=40, comp=0, palette=b""):
+    """A bottom-up BMP of (H, W, bytes a pixel) uint8 rows as stored; with
+    bit fields (comp 3) the standard BGRA masks, in the header from 52
+    bytes on (the alpha mask from 56), else after it."""
+    h, w = img.shape[:2]
+    stride = (w * bits + 31) // 32 * 4
+    data = b"".join(r.tobytes().ljust(stride, b"\0") for r in img[::-1])
+    masks = struct.pack("<IIII", 0xFF0000, 0xFF00, 0xFF, 0xFF000000)
+    info = struct.pack("<IiiHHIIiiII", hsize, w, h, 1, bits, comp, len(data),
+                       2835, 2835, len(palette) // 4, 0)
+    if hsize >= 52:
+        info = (info + masks)[:hsize].ljust(hsize, b"\0")
+    elif comp == 3:
+        info += masks[:12]
+    off = 14 + len(info) + len(palette)
+    Path(path).write_bytes(b"BM" + struct.pack("<IHHI", off + len(data), 0, 0,
+                                               off) + info + palette + data)
+
+
+@pytest.mark.parametrize("layout", ["palette", "bgr", "bgrx", "fields40",
+                                    "fields52", "fields56", "fields124"])
+def test_bmp_as_grey_equals_cv2(tmp_path, layout):
+    """A colour palette, 24 and 32 bits, read as grey: cv2 turns each row
+    grey as it decodes, with the 14-bit fixed point, or, for 32 bits with
+    bit fields in a header that holds an alpha mask (56 bytes or more), a
+    float32 sum it truncates."""
+    rng = np.random.RandomState(len(layout))
+    kw = {"palette": dict(bits=8), "bgr": dict(bits=24),
+          "bgrx": dict(bits=32), "fields40": dict(bits=32, comp=3),
+          "fields52": dict(bits=32, comp=3, hsize=52),
+          "fields56": dict(bits=32, comp=3, hsize=56),
+          "fields124": dict(bits=32, comp=3, hsize=124)}[layout]
+    if layout == "palette":
+        pal = rng.randint(0, 256, (256, 4)).astype(np.uint8)
+        pal[:, 3] = 0
+        img = rng.randint(0, 256, (23, 37, 1)).astype(np.uint8)
+        kw["palette"] = pal.tobytes()
+    else:
+        img = rng.randint(0, 256, (23, 37, kw["bits"] // 8)).astype(np.uint8)
+    bmp_file(tmp_path / "t.bmp", img, **kw)
+    for mode in ("color", "gray", "anydepth"):
+        assert_same(decode(str(tmp_path / "t.bmp"), mode),
+                    cv2_read(tmp_path / "t.bmp", mode))
 
 
 @pytest.mark.parametrize("orientation", range(1, 9))
@@ -224,23 +274,75 @@ def test_corrupt_missing_and_webp_raise(tmp_path):
 
 @pytest.mark.parametrize("quality", [80, 101])       # 101: lossless
 def test_webp_equals_cv2(tmp_path, quality):
-    """WebP, lossy and lossless, colour and as stored, equal to cv2.imread;
-    a colour WebP read as grey raises (cv2's conversion is not Pillow's)."""
-    path = tmp_path / "t.webp"
-    cv2.imwrite(str(path), scene(37, 53, seed=quality)[..., ::-1],
-                [cv2.IMWRITE_WEBP_QUALITY, quality])
-    for mode in ("color", "unchanged"):
-        assert_same(decode(str(path), mode), cv2_read(path, mode))
-    with pytest.raises(InvalidSampleError, match="grey of a colour WebP"):
-        decode(str(path), "gray")
+    """WebP, lossy and lossless, with and without alpha, in colour, as
+    stored and read as grey (cv2 decodes in colour, then its 15-bit
+    ``cvtColor``), equal to cv2.imread."""
+    img = scene(37, 53, seed=quality)[..., ::-1]
+    alpha = np.random.RandomState(quality).randint(0, 256, img.shape[:2])
+    for name, src in (("t.webp", img), ("a.webp", np.concatenate(
+            [img, alpha[..., None].astype(np.uint8)], -1))):
+        path = tmp_path / name
+        cv2.imwrite(str(path), src, [cv2.IMWRITE_WEBP_QUALITY, quality])
+        for mode in ("color", "unchanged", "gray", "anydepth"):
+            assert_same(decode(str(path), mode), cv2_read(path, mode))
 
 
 def test_truncated_jpeg_raises(tmp_path):
-    """A JPEG cut short raises, where cv2 returns it with grey rows."""
-    data = (FIXTURES / "baseline_480x640.jpg").read_bytes()
-    (tmp_path / "cut.jpg").write_bytes(data[:len(data) * 2 // 3])
+    """A JPEG cut inside its header raises, as cv2 returns nothing for it;
+    one cut after its header decodes as cv2's does (the rows that arrived,
+    then libjpeg's fill), in colour and grey, baseline and progressive, at
+    cuts every ~1/40 of the file."""
     with pytest.raises(InvalidSampleError, match="corrupt JPEG"):
-        decode(str(tmp_path / "cut.jpg"))
+        decode(str(FIXTURES / "corrupt.jpg"))
+    for name in ("baseline_480x640.jpg", "progressive_640x427.jpg"):
+        data = (FIXTURES / name).read_bytes()
+        for cut in range(len(data) // 40, len(data), len(data) // 40):
+            path = tmp_path / f"cut{cut}.jpg"
+            path.write_bytes(data[:cut])
+            for mode in ("color", "gray"):
+                want = cv2.imread(str(path), CV2_FLAGS[mode])
+                if want is None:
+                    with pytest.raises(InvalidSampleError):
+                        decode(str(path), mode)
+                    continue
+                assert_same(decode(str(path), mode), cv2_read(path, mode))
+
+
+def test_jpeg_reaches_pillow_with_an_eoi(tmp_path):
+    """A whole JPEG with bytes after its EOI, and one whose data ends in a
+    stuffed 0xFF, decode as cv2's; Pillow's process-wide
+    ``LOAD_TRUNCATED_IMAGES`` stays off."""
+    from PIL import ImageFile
+    data = (FIXTURES / "baseline_480x640.jpg").read_bytes()
+    (tmp_path / "tail.jpg").write_bytes(data + b"\x00" * 7)
+    assert_same(decode(str(tmp_path / "tail.jpg")),
+                cv2_read(tmp_path / "tail.jpg"))
+    cut = data.index(b"\xff\x00", len(data) // 2) + 1
+    (tmp_path / "ff.jpg").write_bytes(data[:cut])
+    assert_same(decode(str(tmp_path / "ff.jpg")), cv2_read(tmp_path / "ff.jpg"))
+    assert not ImageFile.LOAD_TRUNCATED_IMAGES
+
+
+@pytest.mark.parametrize("adobe", [True, False])
+def test_cmyk_jpeg_equals_cv2(tmp_path, adobe):
+    """CMYK JPEGs through cv2's CMYK -> BGR of libjpeg's output (Adobe's
+    inverted convention), and its grey of that; with and without Adobe's
+    marker (libjpeg and Pillow treat the samples alike either way)."""
+    from PIL import Image
+    rng = np.random.RandomState(7)
+    cmyk = rng.randint(0, 256, (29, 41, 4)).astype(np.uint8)
+    cmyk[..., 3] //= 2
+    path = tmp_path / "c.jpg"
+    Image.fromarray(cmyk, "CMYK").save(path, quality=92)
+    if not adobe:        # drop the APP14 "Adobe" segment
+        data = path.read_bytes()
+        at = data.index(b"Adobe") - 4           # FF EE, then the length
+        assert data[at:at + 2] == b"\xff\xee"
+        n = struct.unpack(">H", data[at + 2:at + 4])[0]
+        path.write_bytes(data[:at] + data[at + 2 + n:])
+        assert b"Adobe" not in path.read_bytes()
+    for mode in ("color", "gray", "anydepth", "unchanged"):
+        assert_same(decode(str(path), mode), cv2_read(path, mode))
 
 
 def fixture_images():
@@ -314,8 +416,74 @@ def test_png_disparity_needs_png_negate():
 
 
 def test_colour_png_as_mask_raises(tmp_path):
-    """cv2's colour -> grey conversion of a PNG is not reproduced: the port
-    refuses it rather than giving other values."""
-    with pytest.raises(InvalidSampleError, match="colour PNG"):
-        tsc.Mask(str(FIXTURES / "rgb_120x160.png"))
+    """A colour PNG read as a mask goes through libpng's rgb_to_gray as
+    cv2 sets it up, equal to the JAX package's Mask; the cases whose
+    conversion the port does not reproduce still raise: a 16-bit colour
+    PNG with a gamma, and one with an ICC profile."""
+    path = str(FIXTURES / "rgb_120x160.png")
+    np.testing.assert_array_equal(tsc.Mask(path).array.numpy(),
+                                  np.asarray(jsc.Mask(path).as_numpy()))
+    rgb16 = np.random.RandomState(0).randint(0, 65536, (5, 6, 3))
+    cv2.imwrite(str(tmp_path / "c.png"), rgb16.astype(np.uint16))
+    data = (tmp_path / "c.png").read_bytes()
+    for tag, body in ((b"gAMA", struct.pack(">I", 45455)),
+                      (b"iCCP", b"x\x00\x00" + zlib.compress(b"icc"))):
+        (tmp_path / "g.png").write_bytes(data[:33] + png_chunk(tag, body)
+                                         + data[33:])
+        for mode in ("gray", "anydepth"):
+            with pytest.raises(InvalidSampleError, match="colour PNG"):
+                decode(str(tmp_path / "g.png"), mode)
+        assert_same(decode(str(tmp_path / "g.png"), "unchanged"),
+                    cv2_read(tmp_path / "g.png", "unchanged"))
+
+
+@pytest.mark.parametrize("chunk", ["none", "gAMA 0.45455", "gAMA 0.55",
+                                   "gAMA 1.0", "gAMA 2.2", "sRGB"])
+@pytest.mark.parametrize("ctype", [2, 3, 6])
+def test_colour_png_as_grey_equals_cv2(tmp_path, chunk, ctype):
+    """RGB, palette and RGBA PNGs at 8 bits read as grey: libpng's
+    rgb_to_gray with cv2's coefficients, truncating without a gamma, through
+    its 8-bit gamma tables with one (gAMA far from 1, or sRGB)."""
+    rng = np.random.RandomState(ctype)
+    h, w = 17, 29
+    if ctype == 3:
+        img = rng.randint(0, 256, (h, w)).astype(np.uint8)
+        plte = rng.randint(0, 256, 768).astype(np.uint8).tobytes()
+    else:
+        img = rng.randint(0, 256, (h, w, 3 if ctype == 2 else 4))
+        img[:2, :, 1:3] = img[:2, :, :1]        # equal samples stay
+        img, plte = img.astype(np.uint8), None
+    extra = b""
+    if chunk == "sRGB":
+        extra = png_chunk(b"sRGB", b"\x00")
+    elif chunk != "none":
+        extra = png_chunk(b"gAMA", struct.pack(
+            ">I", round(1e5 * float(chunk.split()[1]))))
+    raw = b"".join(b"\x00" + r.tobytes() for r in img)
+    data = (b"\x89PNG\r\n\x1a\n" + png_chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, 8, ctype, 0, 0, 0)) + extra)
+    if plte is not None:
+        data += png_chunk(b"PLTE", plte)
+    data += png_chunk(b"IDAT", zlib.compress(raw)) + png_chunk(b"IEND", b"")
+    (tmp_path / "c.png").write_bytes(data)
+    for mode in ("gray", "anydepth", "color"):
+        assert_same(decode(str(tmp_path / "c.png"), mode),
+                    cv2_read(tmp_path / "c.png", mode))
+
+
+@pytest.mark.parametrize("depth", [8, 16])
+def test_grey_alpha_png_unchanged_equals_cv2(tmp_path, depth):
+    """A grey + alpha PNG read as stored: cv2 gives RGBA with the grey in
+    each colour channel, at the stored depth."""
+    rng = np.random.RandomState(depth)
+    ga = rng.randint(0, 1 << depth, (9, 14, 2)).astype(
+        np.uint8 if depth == 8 else ">u2")
+    raw = b"".join(b"\x00" + r.tobytes() for r in ga)
+    (tmp_path / "ga.png").write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + png_chunk(b"IHDR", struct.pack(">IIBBBBB", 14, 9, depth, 4, 0, 0, 0))
+        + png_chunk(b"IDAT", zlib.compress(raw)) + png_chunk(b"IEND", b""))
+    for mode in ("unchanged", "color", "gray", "anydepth"):
+        assert_same(decode(str(tmp_path / "ga.png"), mode),
+                    cv2_read(tmp_path / "ga.png", mode))
 
