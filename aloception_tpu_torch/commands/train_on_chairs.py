@@ -20,7 +20,7 @@ import argparse
 
 # flags of the JAX command that the port does not take yet, with their
 # ROADMAP item
-NOT_PORTED = {"multihost": "A12", "steps_per_dispatch": "A12", "log": "A6"}
+NOT_PORTED = {"multihost": "A12", "steps_per_dispatch": "A12"}
 
 
 def main(argv=None):
@@ -43,7 +43,9 @@ def main(argv=None):
                         "experiments via the alonet config)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cpu", action="store_true", help="train on the CPU")
-    p.add_argument("--log", default=None)
+    p.add_argument("--log", default=None, choices=[None, "tensorboard", "tb"],
+                   help="write a TensorBoard event file into the run's "
+                        "checkpoint directory")
     p.add_argument("--multihost", action="store_true")
     p.add_argument("--steps_per_dispatch", type=int, default=None)
     args = p.parse_args(argv)
@@ -63,7 +65,7 @@ def main(argv=None):
                    seed=args.seed)
     kwargs = dict(data_module=dm, small=args.small, iters=args.iters,
                   run_id=args.run_id, num_steps=args.max_steps, device=device,
-                  seed=args.seed,
+                  seed=args.seed, log=args.log,
                   callbacks=[MetricsCallback(), EPECallback()])
     if args.log_dir:
         kwargs["log_dir"] = args.log_dir

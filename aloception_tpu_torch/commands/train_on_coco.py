@@ -10,6 +10,8 @@ python -m aloception_tpu_torch.commands.train_on_coco --model panoptic_deformabl
     --batch_size 4 --size 640 640 --max_steps 100
 python -m aloception_tpu_torch.commands.train_on_coco --model deformable --multiscale \
     --batch_size 2 --max_steps 100
+python -m aloception_tpu_torch.commands.train_on_coco --model deformable --sample --bf16 \
+    --log tensorboard --batch_size 8 --size 640 640 --max_steps 100
 
 ``--model panoptic`` and ``--model panoptic_deformable`` train the panoptic
 head on a frozen DETR-R50 or Deformable-DETR-R50 (without refinement), the
@@ -21,6 +23,9 @@ Without ``--sample`` it reads COCO on disk (``train2017``, ``val2017``,
 made by ``--num_workers`` threads; ``--multiscale`` trains at the
 reference's multi-scale geometry (shorter side 480-800, longer at most
 1333, batches padded to ``MULTISCALE_BUCKETS``) instead of ``--size``.
+``--bf16`` computes in bfloat16 over float32 master weights (the
+criterion in float32); ``--log tensorboard`` writes an event file of the
+train and validation metrics into the run's checkpoint directory.
 Runs on the CUDA card, or on the CPU with ``--cpu``; without a card and
 without ``--cpu`` it raises.
 """
@@ -31,7 +36,7 @@ import argparse
 
 # flags of the JAX command that the port does not take yet, with their
 # ROADMAP item
-NOT_PORTED = {"bf16": "A6", "log": "A6", "tp": "A12", "multihost": "A12"}
+NOT_PORTED = {"tp": "A12", "multihost": "A12"}
 
 
 def add_argparse_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -63,8 +68,11 @@ def add_argparse_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--multiscale", action="store_true",
                    help="reference multi-scale geometry (scales 480-800, "
                         "max 1333, bucketed padding) instead of --size")
-    p.add_argument("--bf16", action="store_true")
-    p.add_argument("--log", default=None)
+    p.add_argument("--bf16", action="store_true",
+                   help="compute in bfloat16 over float32 master weights")
+    p.add_argument("--log", default=None, choices=[None, "tensorboard", "tb"],
+                   help="write a TensorBoard event file into the run's "
+                        "checkpoint directory")
     p.add_argument("--tp", type=int, default=None)
     p.add_argument("--multihost", action="store_true")
     return p
@@ -89,8 +97,11 @@ def main(argv=None):
                             train_on_val=args.train_on_val, sample=args.sample,
                             size=None if args.multiscale else tuple(args.size),
                             seed=args.seed, return_masks=panoptic)
+    import torch
     kwargs = dict(data_module=dm, run_id=args.run_id,
                   expe_name=args.expe_name, device=device, seed=args.seed,
+                  log=args.log,
+                  dtype=torch.bfloat16 if args.bf16 else torch.float32,
                   callbacks=[MetricsCallback(), PQMetricsCallback()
                              if panoptic else ApMetricsCallback()])
     if args.project:

@@ -21,7 +21,11 @@ BN_EPS = 1e-5
 
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with frozen statistics and affine parameters, all buffers
-    (reference ``FrozenBatchNorm2d``). The fold is computed in float32."""
+    (reference ``FrozenBatchNorm2d``). The fold is computed in float32, and
+    a model cast for a train step keeps the buffers in float32, as the flax
+    module keeps its (frozen) parameters."""
+
+    keep_float32 = True
 
     def __init__(self, features: int, device=None):
         super().__init__()

@@ -2,8 +2,10 @@
 ``aloception_tpu/models/deformable_detr/deformable_detr.py``).
 
 Multi-scale (4-level) input projections with GroupNorm, 300 queries from a
-2x-hidden embedding, sigmoid-focal classification, optional iterative box
-refinement through per-layer box heads wired into the decoder. With
+2x-hidden embedding, sigmoid-focal classification (or, with
+``activation_fn="softmax"``, softmax over the classes and a background
+class), optional iterative box refinement through per-layer box heads wired
+into the decoder. With
 ``return_intermediate`` the backbone returns layer1-4 (the levels stay
 C3-C5) and the output dict carries what the panoptic head reads. Parameters
 carry the reference ``state_dict`` names (``backbone.0.body.*``,
@@ -22,7 +24,8 @@ from torch import nn
 from ...aloscene import BoundingBoxes2D
 from ..backbone.resnet import Backbone
 from ..detr.detr import boxes_per_image
-from ..transformers import (MLP, entry_device, init_parameters,
+from ..detr.detr import inference as detr_inference
+from ..transformers import (MLP, GroupNorm, entry_device, init_parameters,
                             position_embedding_sine)
 from .deformable_transformer import DeformableTransformer, inverse_sigmoid
 from .ms_deform_attn import MSDeformAttn
@@ -37,11 +40,18 @@ class DeformableDETR(nn.Module):
                  dim_feedforward: int = 1024, n_points: int = 4,
                  dropout: float = 0.1, with_box_refine: bool = False,
                  return_intermediate: bool = False,
-                 stage_sizes: Sequence[int] = (3, 4, 6, 3), device=None,
+                 stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 activation_fn: str = "sigmoid", device=None,
                  generator: Optional[torch.Generator] = None):
         """Parameters are drawn from ``generator`` (a fresh one seeded with 0
-        on ``device`` when None). ``dropout`` acts in train mode only."""
+        on ``device`` when None). ``dropout`` acts in train mode only.
+        ``activation_fn`` "sigmoid" (focal) gives ``num_classes`` logits,
+        "softmax" ``num_classes + 1``, the last the background class."""
         super().__init__()
+        if activation_fn not in ("sigmoid", "softmax"):
+            raise ValueError(f"activation_fn {activation_fn!r}: sigmoid or "
+                             "softmax")
+        self.activation_fn = activation_fn
         self.hidden_dim = hidden_dim
         self.nheads = nheads
         self.num_classes = num_classes
@@ -56,11 +66,11 @@ class DeformableDETR(nn.Module):
         in_channels = (512, 1024, 2048)
         self.input_proj = nn.ModuleList(
             [nn.Sequential(nn.Conv2d(c, hidden_dim, 1, device=device),
-                           nn.GroupNorm(32, hidden_dim, device=device))
+                           GroupNorm(32, hidden_dim, device=device))
              for c in in_channels]
             + [nn.Sequential(nn.Conv2d(in_channels[-1], hidden_dim, 3,
                                        stride=2, padding=1, device=device),
-                             nn.GroupNorm(32, hidden_dim, device=device))])
+                             GroupNorm(32, hidden_dim, device=device))])
         self.query_embed = nn.Embedding(num_queries, 2 * hidden_dim,
                                         device=device)
         self.transformer = DeformableTransformer(
@@ -71,7 +81,8 @@ class DeformableDETR(nn.Module):
         # heads: per-layer clones for refinement, else one module repeated
         # (the reference's ModuleList of one shared module)
         def class_head():
-            return nn.Linear(hidden_dim, num_classes, device=device)
+            return nn.Linear(hidden_dim, num_classes + (
+                activation_fn == "softmax"), device=device)
 
         def box_head():
             return MLP(hidden_dim, hidden_dim, 4, 3, device=device)
@@ -90,6 +101,11 @@ class DeformableDETR(nn.Module):
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         _init_parameters(self, generator)
+
+    @property
+    def background_class(self) -> Optional[int]:
+        """The softmax head's background class; None for the sigmoid one."""
+        return self.num_classes if self.activation_fn == "softmax" else None
 
     def forward(self, images: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> Dict:
@@ -182,11 +198,17 @@ def deformable_detr_r50(num_classes: int = 91, with_box_refine: bool = False,
     return model.eval()
 
 
-def inference(m_outputs: Dict, threshold: float = 0.2
-              ) -> List[BoundingBoxes2D]:
+def inference(m_outputs: Dict, threshold: float = 0.2,
+              activation_fn: str = "sigmoid") -> List[BoundingBoxes2D]:
     """Sigmoid-focal inference: score = max sigmoid(logit) over classes, keep
     score > threshold. Returns per image relative (cx, cy, w, h)
-    ``BoundingBoxes2D`` with float32 ``Labels`` carrying the scores."""
+    ``BoundingBoxes2D`` with float32 ``Labels`` carrying the scores. With
+    ``activation_fn="softmax"`` it is DETR's inference, the last logit the
+    background class."""
+    if activation_fn == "softmax":
+        return detr_inference(
+            m_outputs, threshold=threshold,
+            background_class=m_outputs["pred_logits"].shape[-1] - 1)
     scores, labels = m_outputs["pred_logits"].float().sigmoid().max(-1)
     return boxes_per_image(m_outputs["pred_boxes"], labels, scores,
                            scores > threshold)

@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..transformers import LayerNorm
+
 from .ms_deform_attn import MSDeformAttn
 
 # flax nn.LayerNorm's default epsilon, which the JAX package uses
@@ -72,10 +74,10 @@ class DeformableEncoderLayer(nn.Module):
         self.dropout = nn.Dropout(dropout)
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
                                       device=device)
-        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.norm1 = LayerNorm(d_model, eps=LN_EPS, device=device)
         self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
         self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
-        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.norm2 = LayerNorm(d_model, eps=LN_EPS, device=device)
 
     def forward(self, src, pos, reference_points, spatial_shapes,
                 padding_mask=None):
@@ -94,14 +96,14 @@ class DeformableDecoderLayer(nn.Module):
         self.dropout = nn.Dropout(dropout)
         self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
                                        device=device)
-        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.norm1 = LayerNorm(d_model, eps=LN_EPS, device=device)
         self.self_attn = nn.MultiheadAttention(d_model, n_heads,
                                                dropout=dropout,
                                                batch_first=True, device=device)
-        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.norm2 = LayerNorm(d_model, eps=LN_EPS, device=device)
         self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
         self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
-        self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.norm3 = LayerNorm(d_model, eps=LN_EPS, device=device)
 
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes,
                 src_padding_mask=None):
@@ -189,6 +191,7 @@ class DeformableTransformer(nn.Module):
                                                     device=device))
         # kept in float32 by the model's dtype cast, as the JAX package does
         self.reference_points = nn.Linear(d_model, 2, device=device)
+        self.reference_points.keep_float32 = True
 
     def forward(self, srcs: List[torch.Tensor], masks: List[torch.Tensor],
                 pos_embeds: List[torch.Tensor], query_embed: torch.Tensor):

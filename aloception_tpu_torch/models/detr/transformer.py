@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..transformers import LayerNorm
+
 # flax nn.LayerNorm's default epsilon, which the JAX package uses
 LN_EPS = 1e-6
 
@@ -36,8 +38,8 @@ class EncoderLayer(nn.Module):
                                                batch_first=True, device=device)
         self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
         self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
-        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
-        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.norm1 = LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.norm2 = LayerNorm(d_model, eps=LN_EPS, device=device)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, src: torch.Tensor, pos: torch.Tensor,
@@ -65,9 +67,9 @@ class DecoderLayer(nn.Module):
             d_model, nheads, dropout=dropout, batch_first=True, device=device)
         self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
         self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
-        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
-        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
-        self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.norm1 = LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.norm2 = LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.norm3 = LayerNorm(d_model, eps=LN_EPS, device=device)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor,
@@ -106,7 +108,7 @@ class TransformerDecoder(nn.Module):
         self.layers = nn.ModuleList(
             DecoderLayer(d_model=d_model, device=device, **layer_kwargs)
             for _ in range(num_layers))
-        self.norm = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.norm = LayerNorm(d_model, eps=LN_EPS, device=device)
 
     def forward(self, tgt, memory, pos, query_pos, key_padding_mask=None):
         intermediates = []

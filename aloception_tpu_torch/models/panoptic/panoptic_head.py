@@ -33,7 +33,7 @@ from torch import nn
 
 from ...aloscene import BoundingBoxes2D, Mask
 from ..detr.detr import boxes_of_kept, kept_queries
-from ..transformers import init_parameters
+from ..transformers import GroupNorm, init_parameters
 
 GN_EPS = 1e-5
 
@@ -91,7 +91,7 @@ class MaskHeadSmallConv(nn.Module):
             cin = dims[max(i - 1, 0)]
             self.add_module(f"lay{i + 1}", nn.Conv2d(cin, dims[i], 3,
                                                      padding=1, device=device))
-            self.add_module(f"gn{i + 1}", nn.GroupNorm(
+            self.add_module(f"gn{i + 1}", GroupNorm(
                 math.gcd(8, dims[i]), dims[i], eps=GN_EPS, device=device))
         self.out_lay = nn.Conv2d(dims[4], 1, 3, padding=1, device=device)
         for i, cin in enumerate(fpn_dims):

@@ -6,6 +6,9 @@
 - position_embedding_sine: 2-D sine positional encoding computed from the
   *non-padded* area of the padding mask via cumulative sums.
 - init_parameters: the detectors' random init from one explicit generator.
+- LayerNorm, GroupNorm and cast_for_training: a model in a low precision
+  for a train step, computing where flax computes in float32 (its norms)
+  in float32.
 """
 
 from __future__ import annotations
@@ -35,6 +38,56 @@ class MLP(nn.Module):
         for layer in self.layers[:-1]:
             x = F.relu(layer(x))
         return self.layers[-1](x)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` that computes in its parameters' dtype: under
+    ``cast_for_training`` they stay float32 while the model computes in
+    bfloat16, and the input is widened and the output cast back, as flax
+    computes a norm (statistics, scale and bias in float32, the output in
+    the model's dtype)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return super().forward(x.to(self.weight.dtype)).to(x.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` that computes in its parameters' dtype, as
+    ``LayerNorm``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return super().forward(x.to(self.weight.dtype)).to(x.dtype)
+
+
+def cast_for_training(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """``model`` computing in ``dtype`` as flax computes a model built with
+    ``dtype`` over float32 parameters: its parameters and buffers in
+    ``dtype`` (a train step's optimizer keeps their float32 masters, see
+    ``train.state.TrainOptimizer``), except what flax computes in float32:
+    the norms (their statistics, scale and bias), and modules whose
+    ``keep_float32`` is set (the frozen BatchNorm fold, Deformable-DETR's
+    reference-point projection), which are not rounded on the way. Returns
+    ``model``."""
+    kept = set()
+    for m in model.modules():
+        if isinstance(m, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)) \
+                or getattr(m, "keep_float32", False):
+            kept.update(id(x) for x in (*m.parameters(), *m.buffers()))
+    with torch.no_grad():
+        for m in model.modules():
+            for p in m.parameters(recurse=False):
+                if p.is_floating_point():
+                    p.data = p.data.to(torch.float32 if id(p) in kept
+                                       else dtype)
+            for name, b in m.named_buffers(recurse=False):
+                if b.is_floating_point():
+                    m._buffers[name] = b.to(torch.float32 if id(b) in kept
+                                            else dtype)
+    return model
 
 
 def position_embedding_sine(mask: torch.Tensor, num_pos_feats: int = 64,

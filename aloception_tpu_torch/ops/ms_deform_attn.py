@@ -55,6 +55,56 @@ def ms_deform_attn_torch(value: torch.Tensor,
     return out.to(value.dtype).contiguous()
 
 
+def ms_deform_attn_rounded(value: torch.Tensor,
+                           value_spatial_shapes: Sequence[Tuple[int, int]],
+                           sampling_locations: torch.Tensor,
+                           attention_weights: torch.Tensor) -> torch.Tensor:
+    """The same function in the arithmetic of the JAX package's block
+    formulation (``ms_deform_attn_block``), whose vjp is its backward: the
+    pixel coordinates ``loc * (W_l, H_l) - 0.5``, their fractions and the
+    corner weights ``1 - f`` and ``f`` in value's dtype; the corner products,
+    the samples and the sums in float32. In bfloat16 that rounds coordinates
+    to a quarter or an eighth of a pixel at the widest level, which moves the
+    gradients by a few percent (their location's by a third) from those of
+    ``ms_deform_attn_torch``: this is what a bf16 train step's recompute
+    backward takes the gradient of, as JAX's does. One ``embedding_bag`` a
+    call: a bag per (b, q, h) of its L * P * 4 corner rows of value (zero
+    weight outside), weighted by attention weight x corner weight; its
+    gradient sums the value rows' contributions in float32."""
+    B, len_v, nH, C = value.shape
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    dev = value.device
+    # 32-bit row indices where they fit: a smaller sort in the backward
+    index = torch.int32 if B * len_v * nH < 2**31 else torch.int64
+    b = torch.arange(B, device=dev).view(B, 1, 1, 1)
+    h = torch.arange(nH, device=dev).view(1, 1, nH, 1)
+    rows, coefs, start = [], [], 0
+    for lvl, (hl, wl) in enumerate(value_spatial_shapes):
+        loc = sampling_locations[:, :, :, lvl]           # (B, Lq, nH, P, 2)
+        x = loc[..., 0] * wl - 0.5
+        y = loc[..., 1] * hl - 0.5
+        x0, y0 = torch.floor(x), torch.floor(y)
+        fx, fy = x - x0, y - y0
+        # each weight widened once, so that its gradient sums in float32
+        ay_ = ((1 - fy).float(), fy.float())
+        ax_ = ((1 - fx).float(), fx.float())
+        a = attention_weights[:, :, :, lvl].float()
+        for cy, ay in zip((y0, y0 + 1), ay_):
+            for cx, ax in zip((x0, x0 + 1), ax_):
+                ok = (cx >= 0) & (cx < wl) & (cy >= 0) & (cy < hl)
+                s = start + (cy.clamp(0, hl - 1).long() * wl
+                             + cx.clamp(0, wl - 1).long())
+                rows.append(((b * len_v + s) * nH + h).to(index))
+                coefs.append(a * (ay * ax * ok))
+        start += hl * wl
+    bags = B * Lq * nH
+    out = F.embedding_bag(
+        torch.stack(rows, -1).reshape(bags, -1),
+        value.float().reshape(B * len_v * nH, C), mode="sum",
+        per_sample_weights=torch.stack(coefs, -1).reshape(bags, -1))
+    return out.view(B, Lq, nH * C).to(value.dtype)
+
+
 OP_NAME = "aloception_tpu_torch::ms_deform_attn"
 
 
@@ -102,9 +152,11 @@ def _setup_context(ctx, inputs, output):
 def _backward(ctx, grad_out):
     """The backward of the JAX package's ``_msda_pallas_bwd``
     (aloception_tpu/ops/ms_deform_attn.py:256): the gradient of the plain
-    version, recomputed on the saved inputs, for value, loc and w. The JAX
-    package has no backward kernel either (its Pallas backward was deleted
-    after it failed on the hardware). Each pass is counted in
+    version, recomputed on the saved inputs, for value, loc and w; in
+    float32 that of ``ms_deform_attn_torch``, in a lower precision that of
+    ``ms_deform_attn_rounded``, which computes as JAX's recompute does. The
+    JAX package has no backward kernel either (its Pallas backward was
+    deleted after it failed on the hardware). Each pass is counted in
     ``ms_deform_attn_cuda.backward_passes``."""
     value, loc, w = ctx.saved_tensors
     needs = (ctx.needs_input_grad[0], ctx.needs_input_grad[2],
@@ -112,8 +164,9 @@ def _backward(ctx, grad_out):
     inputs = [t.detach().requires_grad_(need)
               for t, need in zip((value, loc, w), needs)]
     with torch.enable_grad():
-        out = ms_deform_attn_torch(inputs[0], ctx.shapes, inputs[1],
-                                   inputs[2])
+        plain = ms_deform_attn_torch if value.dtype == torch.float32 \
+            else ms_deform_attn_rounded
+        out = plain(inputs[0], ctx.shapes, inputs[1], inputs[2])
         wanted = [t for t in inputs if t.requires_grad]
         grads = iter(torch.autograd.grad(out, wanted, grad_out))
     ms_deform_attn_cuda.backward_passes += 1

@@ -10,11 +10,12 @@
 //   - PNG: every colour type at 1-16 bits, interlaced or not, inflated
 //     with zlib (Pillow reduces 16-bit colour to 8 bits); a colour PNG read
 //     as grey through libpng's png_set_rgb_to_gray as cv2 sets it up
-//     (rgb_to_grey_png), its gamma tables included at 8 bits.
+//     (rgb_to_grey_png), its 8- and 16-bit gamma tables included.
 //   - BMP: uncompressed 8 (palette), 24 and 32 bits; read as grey through
 //     cv2's icvCvt_BGR2Gray (14-bit fixed point), or, for 32 bits with
 //     bit fields in a header of 56 bytes or more, the float32 weighted sum
-//     cv2 truncates (grey_14, grey_float).
+//     cv2 truncates (grey_14, grey_float); 32 bits with bit fields read as
+//     stored keep their alpha.
 // Decoding raises nothing: every entry returns a status and writes the
 // reason of a failure into the caller's message buffer.
 //
@@ -107,50 +108,105 @@ bool unfilter(uint8_t* rows, int nrows, size_t rowbytes, int bpp) {
 
 // libpng's gamma lookup of 8-bit samples (png_build_8bit_table with
 // floating-point arithmetic): identity unless the gamma is significant.
+bool significant(int64_t g) { return g < 95000 || g > 105000; }
+
 void gamma_table_8(int64_t g, uint16_t* table) {
-  const bool significant = g < 95000 || g > 105000;
   for (int v = 0; v < 256; ++v)
-    table[v] = uint16_t(!significant || v == 0 || v == 255
+    table[v] = uint16_t(!significant(g) || v == 0 || v == 255
                             ? v
                             : floor(255 * pow(v / 255., g * .00001) + .5));
 }
 
 int64_t reciprocal(int64_t a) { return int64_t(floor(1e10 / double(a) + .5)); }
 
+// libpng's 16-bit gamma tables, flattened: a sample v is looked up at
+// (v >> 8) << (8 - shift) | (v & 0xff) >> shift, its top 16 - shift bits.
+// png_build_16bit_table (floating point; the identity, rescaled, when the
+// gamma is not significant) ...
+std::vector<uint16_t> gamma_table_16(int shift, int64_t g) {
+  const int bits = 16 - shift;
+  const uint32_t max = (1u << bits) - 1;
+  const double fmax = 1.0 / max;
+  std::vector<uint16_t> t(size_t(1) << bits);
+  for (uint32_t ig = 0; ig <= max; ++ig)
+    t[ig] = uint16_t(significant(g)
+                         ? floor(65535. * pow(ig * fmax, g * .00001) + .5)
+                         : shift ? (ig * 65535u + (1u << (15 - shift))) / max
+                                 : ig);
+  return t;
+}
+
+// ... and png_build_16to8_table: the 16-bit value whose high byte is the
+// nearest 8-bit output, for a sample that is cut to 8 bits afterwards.
+std::vector<uint16_t> gamma_table_16_to_8(int shift, int64_t g) {
+  const uint32_t max = (1u << (16 - shift)) - 1;
+  std::vector<uint16_t> t(size_t(max) + 1, 65535);
+  uint32_t last = 0;
+  for (uint32_t i = 0; i < 255; ++i) {
+    const uint32_t v = i * 257 + 128;
+    const uint32_t corrected =
+        v < 65535 ? uint32_t(floor(65535 * pow(v / 65535., g * .00001) + .5))
+                  : v;
+    const uint32_t bound = (corrected * max + 32768) / 65535 + 1;
+    for (; last < bound && last <= max; ++last) t[last] = uint16_t(i * 257);
+  }
+  return t;
+}
+
 // cv2 reads a colour PNG as grey with png_set_rgb_to_gray(png, 1, 0.299,
 // 0.587): libpng's coefficients 9797 and 19234 (of 32768; blue the rest),
-// applied before its 16 -> 8 bit strip and after the alpha is stripped. A
-// pixel whose three samples are equal keeps them. Without a significant
-// gamma, 8 bits truncate and 16 bits round; with one (a gAMA far from 1 or
-// sRGB), 8-bit samples go through its to-linear and from-linear tables.
-// Overwrites s (n pixels of `chans` samples) with one grey sample a pixel.
-// Refused: an ICC or cICP profile, which libpng may read as sRGB, and a
-// significant gamma at 16 bits (libpng's 16-bit tables).
-Failure rgb_to_grey_png(std::vector<uint16_t>* s, size_t n, int chans,
-                        int depth, int64_t gama, bool srgb, bool profile) {
+// applied before its 16 -> 8 bit strip and after the alpha is stripped.
+// Without a significant file gamma, 8 bits truncate and 16 bits round, and a
+// pixel whose three samples are equal keeps them. With one, libpng's
+// png_do_rgb_to_gray goes through its gamma tables: at 8 bits the to-linear
+// and from-linear tables, equal samples kept; at 16 bits tables of the top
+// 16 - shift bits of a sample (shift: the bits sBIT marks insignificant, at
+// least 5 when the result is cut to 8 bits), equal samples through the
+// overall (about identity) table, which rounds to 8 bits when they are cut.
+// The file gamma is libpng 1.6.58's: sRGB wherever its chunk is (over any
+// gAMA), else a gAMA in range, else 1; iCCP and cICP chunks give none.
+// Overwrites s (n pixels of `chans` samples) with one grey sample a pixel,
+// 16 bits wide at depth 16.
+void rgb_to_grey_png(std::vector<uint16_t>* s, size_t n, int chans, int depth,
+                     bool cut_to_8, int64_t gama, bool srgb, int sbit) {
   const int64_t rc = 9797, gc = 19234, bc = 32768 - rc - gc;
-  if (profile)
-    return {kUnsupported,
-            "unsupported: a colour PNG with an ICC or cICP profile read as "
-            "grey (libpng's profile checks are not reproduced)"};
   if (gama < 16 || gama > 625000000) gama = 0;  // libpng ignores it
-  if (srgb && gama && gama != 45455)
-    return {kUnsupported,
-            "unsupported: a colour PNG read as grey with both sRGB and a "
-            "gAMA of another gamma"};
   const int64_t file_gamma = srgb ? 45455 : (gama ? gama : 100000);
-  const bool significant = file_gamma < 95000 || file_gamma > 105000;
-  if (significant && depth == 16)
-    return {kUnsupported,
-            "unsupported: a 16-bit colour PNG with a gamma read as grey "
-            "(libpng's 16-bit gamma tables are not reproduced)"};
+  const bool gamma = significant(file_gamma);
+  const int64_t screen = reciprocal(file_gamma);
+  std::vector<uint16_t>& v = *s;
+  if (gamma && depth == 16) {
+    int shift = sbit > 0 && sbit < 16 ? 16 - sbit : 0;
+    if (cut_to_8) shift = std::max(shift, 5);
+    shift = std::min(shift, 8);
+    const auto to1 = gamma_table_16(shift, reciprocal(file_gamma));
+    const auto from1 = gamma_table_16(shift, reciprocal(screen));
+    // png_reciprocal2 and png_product2 of the file and screen gammas
+    const auto same =
+        cut_to_8
+            ? gamma_table_16_to_8(
+                  shift, int64_t(floor(file_gamma * 1e-5 * screen + .5)))
+            : gamma_table_16(
+                  shift, int64_t(floor(1e15 / file_gamma / screen + .5)));
+    auto at = [shift](const std::vector<uint16_t>& t, int64_t x) {
+      return int64_t(t[((x >> 8) << (8 - shift)) | ((x & 0xff) >> shift)]);
+    };
+    for (size_t i = 0; i < n; ++i) {
+      const int64_t r = v[i * chans], g = v[i * chans + 1],
+                    b = v[i * chans + 2];
+      v[i] = uint16_t(
+          r == g && r == b
+              ? at(same, r)
+              : at(from1, (rc * at(to1, r) + gc * at(to1, g) +
+                           bc * at(to1, b) + 16384) >> 15));
+    }
+    return;
+  }
   uint16_t to1[256], from1[256];
-  if (significant) {
-    const int64_t screen = reciprocal(file_gamma);
+  if (gamma) {
     gamma_table_8(reciprocal(file_gamma), to1);
     gamma_table_8(reciprocal(screen), from1);
   }
-  std::vector<uint16_t>& v = *s;
   for (size_t i = 0; i < n; ++i) {
     const int64_t r = v[i * chans], g = v[i * chans + 1],
                   b = v[i * chans + 2];
@@ -159,13 +215,12 @@ Failure rgb_to_grey_png(std::vector<uint16_t>* s, size_t n, int chans,
       y = r;
     else if (depth == 16)
       y = (rc * r + gc * g + bc * b + 16384) >> 15;
-    else if (significant)
+    else if (gamma)
       y = from1[(rc * to1[r] + gc * to1[g] + bc * to1[b] + 16384) >> 15];
     else
       y = (rc * r + gc * g + bc * b) >> 15;
     v[i] = uint16_t(y);
   }
-  return {kOk, ""};
 }
 
 Failure decode_png(const uint8_t* buf, size_t len, int mode, Image* img) {
@@ -175,7 +230,8 @@ Failure decode_png(const uint8_t* buf, size_t len, int mode, Image* img) {
   int W = 0, H = 0, depth = 0, ctype = -1, interlace = 0;
   std::vector<uint8_t> idat, palette;
   int64_t gama = 0;              // the gAMA chunk's value, 1e5 = gamma 1
-  bool srgb = false, profile = false;
+  bool srgb = false;
+  int sbit = 0;                  // the most significant bits sBIT gives
   bool ended = false;
   while (pos + 12 <= len) {
     uint32_t n = be32(buf + pos);
@@ -196,8 +252,18 @@ Failure decode_png(const uint8_t* buf, size_t len, int mode, Image* img) {
       gama = int64_t(be32(d));
     } else if (!memcmp(type, "sRGB", 4)) {
       srgb = true;
-    } else if (!memcmp(type, "iCCP", 4) || !memcmp(type, "cICP", 4)) {
-      profile = true;
+    } else if (!memcmp(type, "sBIT", 4)) {
+      // libpng ignores one of the wrong length for the colour type, or with
+      // a value outside 1 to the sample depth; a colour image's is the
+      // largest of its red, green and blue
+      static const int length[7] = {1, 0, 3, 3, 2, 0, 4};
+      const int sample = ctype == 3 ? 8 : depth;
+      bool valid = ctype >= 0 && ctype <= 6 && int(n) == length[ctype];
+      for (uint32_t k = 0; valid && k < n; ++k)
+        valid = d[k] > 0 && d[k] <= sample;
+      if (valid)
+        for (uint32_t k = 0; k < n && k < 3; ++k)
+          sbit = std::max(sbit, int(d[k]));
     } else if (!memcmp(type, "IDAT", 4)) {
       idat.insert(idat.end(), d, d + n);
     } else if (!memcmp(type, "IEND", 4)) {
@@ -301,11 +367,9 @@ Failure decode_png(const uint8_t* buf, size_t len, int mode, Image* img) {
   if (mode == kGray || mode == kAnyDepth) {
     // cv2 asks libpng for grey: rgb_to_gray on a colour source, alpha
     // stripped; 16 bits cut to the high byte after it unless kAnyDepth
-    if (!grey) {
-      Failure f = rgb_to_grey_png(&s, n, out_chans, sdepth, gama, srgb,
-                                  profile);
-      if (f.code != kOk) return f;
-    }
+    if (!grey)
+      rgb_to_grey_png(&s, n, out_chans, sdepth, mode == kGray, gama, srgb,
+                      sbit);
     const int step = grey ? out_chans : 1;
     const bool wide = sdepth == 16 && mode == kAnyDepth;
     img->c = 1;
@@ -391,9 +455,23 @@ Failure decode_bmp(const uint8_t* buf, size_t len, int mode, Image* img) {
   // mask (56 bytes or more)
   const bool to_grey = mode == kGray || mode == kAnyDepth;
   const bool float_grey = bits == 32 && comp == 3 && hsize >= 56;
+  // read as stored, 32 bits with bit fields keep an alpha, as cv2's: the
+  // fourth byte where the header holds no alpha mask (under 56 bytes), the
+  // masked byte where it does, 255 where that mask is 0
+  const bool alpha = mode == kUnchanged && bits == 32 && comp == 3;
+  int alpha_byte = 3;
+  if (alpha && hsize >= 56) {
+    const uint32_t amask = le32(buf + 14 + 52);
+    alpha_byte = -1;
+    for (int k = 0; k < 4; ++k)
+      if (amask == 0xFFu << (8 * k)) alpha_byte = k;
+    if (amask != 0 && alpha_byte < 0)
+      return {kUnsupported,
+              "unsupported BMP: an alpha mask that is not one byte"};
+  }
   img->w = W;
   img->h = H;
-  img->c = to_grey ? 1 : 3;
+  img->c = to_grey ? 1 : (alpha ? 4 : 3);
   img->bytes = 1;
   img->data.resize(size_t(W) * H * img->c);
   for (int y = 0; y < H; ++y) {
@@ -411,10 +489,11 @@ Failure decode_bmp(const uint8_t* buf, size_t len, int mode, Image* img) {
             float_grey ? grey_float(bgr) : grey_14(bgr);
         continue;
       }
-      uint8_t* o = &img->data[(size_t(y) * W + x) * 3];
+      uint8_t* o = &img->data[(size_t(y) * W + x) * img->c];
       o[0] = bgr[2];
       o[1] = bgr[1];
       o[2] = bgr[0];
+      if (alpha) o[3] = alpha_byte < 0 ? 255 : bgr[alpha_byte];
     }
   }
   return {kOk, ""};

@@ -4,7 +4,9 @@
 Layout: ``<ckpt_dir>/<step>/checkpoint.pt`` plus a ``registry.json`` that
 records each save's monitored metrics, so "best" resolves from the registry.
 A checkpoint is a dict: {"model": state_dict, "optimizer": its state,
-"step": int, "rng": the CPU and CUDA generator states}.
+"step": int, "rng": the CPU and CUDA generator states}; the model's entry
+holds float32 masters where it trained in bfloat16, so that it loads into a
+model of either precision.
 """
 
 from __future__ import annotations
@@ -114,6 +116,8 @@ class CheckpointManager:
         model.load_state_dict(tree["model"])
         if optimizer is not None and "optimizer" in tree:
             optimizer.load_state_dict(tree["optimizer"])
+            # a model in a lower precision resumes from the float32 masters
+            optimizer.load_masters(tree["model"])
         rng = tree.get("rng") or {}
         if "cpu" in rng:
             torch.set_rng_state(rng["cpu"])

@@ -16,6 +16,19 @@ The reference DETR training configuration: AdamW, lr 1e-4 on the head and
   on the device without a host sync;
 - accumulation runs ``k`` backward passes of ``loss / k`` into the
   gradients, then one update of their mean, as ``optax.MultiSteps`` does.
+
+With ``dtype`` bfloat16 it trains as the JAX package's models built with
+``dtype=bfloat16`` train: flax keeps float32 parameters and casts them to
+bfloat16 where a layer uses them, so the gradient that reaches a parameter
+is the bfloat16 gradient of its cast, widened, and optax updates in float32.
+Here the optimizer keeps a float32 master of each parameter that the model
+holds in bfloat16 (the model is cast by ``models.transformers.
+cast_for_training``, norms and what flax keeps in float32 staying float32):
+each backward's bfloat16 gradients are widened and accumulated in the
+masters' float32 gradients, the norm is taken and clipped and AdamW steps in
+float32 on the masters, and the masters are copied back into the model,
+rounded. A checkpoint holds the masters under the model's key names
+(``model_state_dict``), so that it loads into a float32 model as it is.
 """
 
 from __future__ import annotations
@@ -24,6 +37,8 @@ from typing import Callable, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
+
+from ..models.transformers import cast_for_training
 
 
 def onecycle_schedule(peak_lr: float, total_steps: int,
@@ -75,7 +90,11 @@ class TrainOptimizer:
                  lr_backbone: float = 1e-5, weight_decay: float = 1e-4,
                  grad_clip: float = 0.1, accumulate_steps: int = 1,
                  schedule: Optional[Callable[[int], float]] = None,
-                 freeze_prefixes: Tuple[str, ...] = ()):
+                 freeze_prefixes: Tuple[str, ...] = (),
+                 dtype: torch.dtype = torch.float32):
+        """With a ``dtype`` other than float32, the masters are taken from
+        the model's parameters as they are (exact when it was built in
+        float32) and the model is then cast by ``cast_for_training``."""
         self.lr, self.lr_backbone = lr, lr_backbone
         self.grad_clip = grad_clip
         self.accumulate_steps = max(1, int(accumulate_steps))
@@ -88,13 +107,30 @@ class TrainOptimizer:
             elif not p.requires_grad:
                 continue
             elif "backbone" in parts:
-                backbone.append(p)
+                backbone.append((name, p))
             else:
-                head.append(p)
-        self.params = head + backbone
+                head.append((name, p))
+        masters = {}
+        if dtype != torch.float32:
+            masters = {name: p.detach().float().clone()
+                       for name, p in model.named_parameters()}
+            cast_for_training(model, dtype)
+        self.params = [p for _, p in head + backbone]
+        # (name, parameter, float32 master) of each parameter the model
+        # holds in a lower precision; a float32 parameter is its own master
+        self.low = [(name, p, masters.get(name, p.detach().float()))
+                    for name, p in head + backbone
+                    if p.dtype != torch.float32]
+        low = {name: m for name, _, m in self.low}
+        self.masters = [low.get(name, p) for name, p in head + backbone]
+        # the float32 values of the frozen parameters the cast rounded, for
+        # the checkpoints: they take no update
+        self.frozen = {name: masters[name] for name, p in
+                       model.named_parameters() if name in masters
+                       and name not in low and p.dtype != torch.float32}
         self.adamw = torch.optim.AdamW(
-            [{"params": head, "lr": lr}, {"params": backbone,
-                                          "lr": lr_backbone}],
+            [{"params": self.masters[:len(head)], "lr": lr},
+             {"params": self.masters[len(head):], "lr": lr_backbone}],
             lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
         self.micro_steps = 0       # backward passes since the last update
         self.updates = 0           # parameter updates applied
@@ -116,7 +152,16 @@ class TrainOptimizer:
         gradient accumulated so far (the norm that is clipped, on an update),
         a 0-d device tensor."""
         self.micro_steps += 1
-        grads = [p.grad for p in self.params if p.grad is not None]
+        # the low-precision gradients, widened into the masters' float32
+        for _, p, m in self.low:
+            if p.grad is None:
+                continue
+            if m.grad is None:
+                m.grad = p.grad.float()
+            else:
+                m.grad.add_(p.grad)
+            p.grad = None
+        grads = [m.grad for m in self.masters if m.grad is not None]
         if not grads:
             raise RuntimeError("step() before any backward()")
         if self.micro_steps < self.accumulate_steps:
@@ -127,9 +172,31 @@ class TrainOptimizer:
         self._set_lr()
         self.adamw.step()
         self.adamw.zero_grad(set_to_none=True)
+        if self.low:
+            with torch.no_grad():
+                torch._foreach_copy_([p for _, p, _ in self.low],
+                                     [m for _, _, m in self.low])
         self.micro_steps = 0
         self.updates += 1
         return norm
+
+    def model_state_dict(self, model: nn.Module) -> dict:
+        """``model.state_dict()`` with the float32 masters in place of the
+        parameters the model holds in a lower precision (the frozen ones'
+        float32 values too)."""
+        state = model.state_dict()
+        state.update({name: m.detach() for name, _, m in self.low})
+        state.update(self.frozen)
+        return state
+
+    def load_masters(self, model_state: dict):
+        """Set the masters from a state dict saved by ``model_state_dict``
+        (the model itself is loaded from it by ``load_state_dict``)."""
+        with torch.no_grad():
+            for name, _, m in self.low:
+                m.copy_(model_state[name])
+            for name, m in self.frozen.items():
+                m.copy_(model_state[name])
 
     def state_dict(self) -> dict:
         return {"adamw": self.adamw.state_dict(),

@@ -9,7 +9,10 @@ a batch's ``inputs`` are the model's positional arguments, so one Trainer
 serves the detectors, the panoptic head and RAFT. Its factories may hand it
 a prebuilt ``optimizer`` (a frozen detector, a schedule), the forward's
 keyword arguments (RAFT's ``iters``) and the ``inference_fn`` that the AP
-and PQ callbacks call on validation outputs.
+and PQ callbacks call on validation outputs. With ``dtype`` bfloat16 the
+model computes in bfloat16 over float32 masters (``TrainOptimizer``); the
+criterion always computes in float32. The logger (``log``) writes into the
+run's checkpoint directory, as the JAX package's does.
 
 Each train batch is prepared on the host, copied to the card by
 non-blocking copies from pinned memory, stepped, and its metrics come back
@@ -67,7 +70,7 @@ class Trainer:
                  val_check_interval: Optional[int] = None,
                  limit_train_batches: Optional[int] = None,
                  limit_val_batches: Optional[int] = None,
-                 seed: int = 0):
+                 seed: int = 0, dtype: torch.dtype = torch.float32):
         self.model = model
         self.device = next(model.parameters()).device
         self.prepare_batch = prepare_batch
@@ -75,7 +78,8 @@ class Trainer:
         self.optimizer = optimizer if optimizer is not None else \
             TrainOptimizer(model, lr=lr, lr_backbone=lr_backbone,
                            weight_decay=weight_decay, grad_clip=grad_clip,
-                           accumulate_steps=accumulate_grad_batches)
+                           accumulate_steps=accumulate_grad_batches,
+                           dtype=dtype)
         self.train_step = make_train_step(model, self.optimizer, criterion,
                                           forward_kwargs)
         self.eval_step = make_eval_step(model, criterion, forward_kwargs)
@@ -97,11 +101,12 @@ class Trainer:
         self._last_val_step = 0
 
     def state_dict(self) -> Dict:
-        """What a checkpoint holds: model, optimizer, step and the CPU and
-        card generators' states."""
+        """What a checkpoint holds: model (its float32 masters where it
+        trains in a lower precision), optimizer, step and the CPU and card
+        generators' states."""
         cuda = torch.cuda.get_rng_state_all() \
             if self.device.type == "cuda" else None
-        return {"model": self.model.state_dict(),
+        return {"model": self.optimizer.model_state_dict(self.model),
                 "optimizer": self.optimizer.state_dict(),
                 "step": self.global_step,
                 "rng": {"cpu": torch.get_rng_state(), "cuda": cuda}}

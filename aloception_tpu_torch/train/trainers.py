@@ -2,7 +2,9 @@
 ``aloception_tpu/train/trainers.py``): model, criterion, data module and
 inference wired into the generic Trainer with the reference's default
 hyperparameters, for DETR, Deformable-DETR, the panoptic head on a frozen
-detector and RAFT.
+detector and RAFT. Each takes ``dtype``, as the JAX factories do: with
+bfloat16 the model computes in bfloat16 over float32 masters
+(``TrainOptimizer``), the criterion in float32.
 """
 
 from __future__ import annotations
@@ -28,10 +30,13 @@ from .trainer import Trainer
 
 
 def make_detr_trainer(data_module: Optional[CocoDetection2Detr] = None,
-                      model=None, device=None, **trainer_kwargs) -> Trainer:
+                      model=None, device=None,
+                      dtype: torch.dtype = torch.float32,
+                      **trainer_kwargs) -> Trainer:
     """DETR: lr 1e-4, backbone 1e-5, weight decay 1e-4, clip 0.1,
-    accumulate 4. Without ``model``, a float32 DETR-R50 on ``device`` (the
-    card unless another is named) with a class per label of the data."""
+    accumulate 4. Without ``model``, a DETR-R50 on ``device`` (the card
+    unless another is named) with a class per label of the data, built in
+    float32 and cast to ``dtype`` by the optimizer."""
     dm = data_module or CocoDetection2Detr(sample=True)
     if model is None:
         model = detr_r50(num_classes=len(dm.label_names), device=device)
@@ -40,7 +45,7 @@ def make_detr_trainer(data_module: Optional[CocoDetection2Detr] = None,
     trainer_kwargs.setdefault("accumulate_grad_batches", 4)
     trainer_kwargs.setdefault("project", "detr")
     trainer = Trainer(
-        model=model,
+        model=model, dtype=dtype,
         criterion=detr_criterion,
         prepare_batch=dm.prepare_batch,
         inference_fn=partial(detr.inference,
@@ -52,11 +57,12 @@ def make_detr_trainer(data_module: Optional[CocoDetection2Detr] = None,
 
 def make_deformable_detr_trainer(with_box_refine: bool = True,
                                  data_module=None, model=None, device=None,
+                                 dtype: torch.dtype = torch.float32,
                                  **trainer_kwargs) -> Trainer:
     """Deformable-DETR: lr 2e-4, backbone 2e-5 (the deformable paper's
     configuration), weight decay 1e-4, clip 0.1. Without ``model``, a
-    float32 Deformable-DETR-R50 on ``device`` with a class per label of the
-    data."""
+    Deformable-DETR-R50 on ``device`` with a class per label of the data,
+    built in float32 and cast to ``dtype`` by the optimizer."""
     dm = data_module or CocoDetection2Detr(sample=True)
     if model is None:
         model = deformable_detr_r50(num_classes=len(dm.label_names),
@@ -67,10 +73,11 @@ def make_deformable_detr_trainer(with_box_refine: bool = True,
     trainer_kwargs.setdefault("lr_backbone", 2e-5)
     trainer_kwargs.setdefault("project", "deformable-detr")
     trainer = Trainer(
-        model=model,
+        model=model, dtype=dtype,
         criterion=deformable_criterion,
         prepare_batch=dm.prepare_batch,
-        inference_fn=dd.inference,
+        inference_fn=partial(dd.inference, activation_fn=getattr(
+            model, "activation_fn", "sigmoid")),
         **trainer_kwargs)
     trainer.data_module = dm
     return trainer
@@ -78,16 +85,18 @@ def make_deformable_detr_trainer(with_box_refine: bool = True,
 
 def make_panoptic_trainer(num_classes: int = 250, data_module=None,
                           detector=None, freeze_detector: bool = True,
-                          criterion=None, device=None, **trainer_kwargs
-                          ) -> Trainer:
+                          criterion=None, device=None,
+                          dtype: torch.dtype = torch.float32,
+                          **trainer_kwargs) -> Trainer:
     """The panoptic head on a detector built with ``return_intermediate``
     (DETR-R50 on ``device`` when None), which is frozen by default: only
     the head trains. AdamW, lr 1e-4, backbone 1e-5, clip 0.1; the frozen
-    detector's parameters (``detr.*``) take no gradient and no update.
-    ``criterion`` defaults to ``panoptic_criterion`` on the DETR criterion;
-    ``inference_fn`` is ``inference_with_masks`` with the detector's
-    activation: softmax with the background class at the detector's
-    ``num_classes`` for DETR, sigmoid for Deformable-DETR."""
+    detector's parameters (``detr.*``) take no gradient and no update; with
+    ``dtype`` bfloat16 head and detector compute in bfloat16, the head over
+    float32 masters. ``criterion`` defaults to ``panoptic_criterion`` on the
+    DETR criterion; ``inference_fn`` is ``inference_with_masks`` with the
+    detector's ``activation_fn`` (DETR's is softmax): softmax with the
+    background class at the detector's ``num_classes``, or sigmoid."""
     dm = data_module or CocoDetection2Detr(sample=True, return_masks=True)
     n_cls = len(dm.label_names) if dm.label_names else num_classes
     model = DetrPanoptic(detector, num_classes=n_cls,
@@ -101,16 +110,16 @@ def make_panoptic_trainer(num_classes: int = 250, data_module=None,
             weight_decay=trainer_kwargs.get("weight_decay", 1e-4),
             grad_clip=trainer_kwargs.get("grad_clip", 0.1),
             accumulate_steps=trainer_kwargs.get("accumulate_grad_batches", 1),
-            freeze_prefixes=("detr",))
-    sigmoid = isinstance(model.detr, dd.DeformableDETR)
+            freeze_prefixes=("detr",), dtype=dtype)
+    act = getattr(model.detr, "activation_fn", "softmax")
     trainer = Trainer(
-        model=model,
+        model=model, dtype=dtype,
         criterion=criterion or panoptic_criterion,
         prepare_batch=_make_panoptic_prepare(dm),
         inference_fn=partial(
-            inference_with_masks,
-            activation_fn="sigmoid" if sigmoid else "softmax",
-            background_class=None if sigmoid else model.detr.num_classes),
+            inference_with_masks, activation_fn=act,
+            background_class=model.detr.num_classes if act == "softmax"
+            else None),
         **trainer_kwargs)
     trainer.data_module = dm
     return trainer
@@ -161,9 +170,12 @@ def _raft_criterion(flow_preds, targets, gamma: float = 0.8):
 def make_raft_trainer(small: bool = False, iters: int = 12,
                       data_module: Optional[Data2RAFT] = None, model=None,
                       num_steps: Optional[int] = None, device=None,
+                      dtype: torch.dtype = torch.float32,
                       **trainer_kwargs) -> Trainer:
-    """RAFT (RAFT-small with ``small``; float32 on ``device`` when
-    ``model`` is None): AdamW lr 4e-4 on every parameter, weight decay
+    """RAFT (RAFT-small with ``small``; built in float32 on ``device`` when
+    ``model`` is None, and cast to ``dtype`` by the optimizer, its norms
+    and the cnet's BatchNorm statistics staying float32): AdamW lr 4e-4 on
+    every parameter, weight decay
     1e-4, clip 1.0, the sequence loss on every step's flow of ``iters``
     iterations (the forward takes ``iters``: the JAX package's factory
     drops it and always trains 12, ROADMAP §C). With ``num_steps``, the
@@ -181,9 +193,9 @@ def make_raft_trainer(small: bool = False, iters: int = 12,
             weight_decay=trainer_kwargs.get("weight_decay", 1e-4),
             grad_clip=trainer_kwargs["grad_clip"],
             accumulate_steps=trainer_kwargs.get("accumulate_grad_batches", 1),
-            schedule=onecycle_schedule(lr, num_steps + 100))
+            schedule=onecycle_schedule(lr, num_steps + 100), dtype=dtype)
     trainer = Trainer(
-        model=model,
+        model=model, dtype=dtype,
         criterion=trainer_kwargs.pop("criterion", _raft_criterion),
         prepare_batch=dm.prepare_batch,
         forward_kwargs={"iters": iters},

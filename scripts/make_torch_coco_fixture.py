@@ -14,7 +14,12 @@
   (written by Pillow, with Adobe's marker), colour WebPs with and without
   alpha, a 16-bit colour PNG, a colour PNG with an sRGB chunk (libpng's
   gamma tables), a grey + alpha PNG, and 24-bit, 32-bit (bit fields) and
-  palette BMPs, read as grey and as stored;
+  palette BMPs, read as grey and as stored; 16-bit RGB and RGBA PNGs read
+  as grey under several gAMA values, sRGB, sRGB beside a gAMA (either
+  order), an sBIT, ICC profiles (an sRGB one made by Little CMS, and
+  another) and a cICP chunk (libpng's 16-bit gamma tables and its choice
+  of the file gamma); 32-bit bit-field BMPs with and without an alpha mask
+  read as stored;
 - ``decodes.npz``: what ``cv2.imread`` gives for each file, keyed
   ``<file>:<mode>`` with mode "color" (RGB), "gray", "anydepth" or
   "unchanged" (RGB(A) order), each
@@ -132,6 +137,7 @@ def main():
     with open(os.path.join(OUT, "corrupt.jpg"), "wb") as f:
         f.write(head[:120])
     reads(np.random.RandomState(2025), record)
+    gamma_reads(np.random.RandomState(2026), record)
     np.savez_compressed(os.path.join(OUT, "decodes.npz"), **decodes)
     files = [os.path.join(d, n) for d, _, names in os.walk(OUT)
              for n in names]
@@ -215,7 +221,7 @@ def reads(rng: np.random.RandomState, record):
     # cv2 writes 4 channels as 32 bits with bit fields and a 124-byte header
     cv2.imwrite(path("bgra_120x160.bmp"), np.concatenate(
         [scene(120, 160, rng), alpha], -1))
-    record("reads/bgra_120x160.bmp", (color, gray))
+    record("reads/bgra_120x160.bmp", (color, gray, unchanged))
     palette = rng.randint(0, 256, (256, 4)).astype(np.uint8)
     palette[:, 3] = 0
     index = rng.randint(0, 256, (96, 128)).astype(np.uint8)
@@ -223,6 +229,93 @@ def reads(rng: np.random.RandomState, record):
         f.write(bmp_bytes([r.tobytes() for r in index], 128, 96, 8,
                           palette.tobytes()))
     record("reads/palette_96x128.bmp", (color, gray))
+
+
+def png_bytes(img: np.ndarray, ctype: int, chunks: bytes = b"") -> bytes:
+    """A 16-bit PNG of (H, W, C) samples, ``chunks`` after its header."""
+    h, w = img.shape[:2]
+    raw = b"".join(b"\0" + r.tobytes() for r in img.astype(">u2"))
+    return (b"\x89PNG\r\n\x1a\n"
+            + png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, ctype, 0,
+                                             0, 0))
+            + chunks + png_chunk(b"IDAT", zlib.compress(raw, 9))
+            + png_chunk(b"IEND", b""))
+
+
+def icc_profiles():
+    """Little CMS's sRGB profile (its date and ID zeroed, so the bytes do not
+    change from run to run) and an RGB profile that is not sRGB: the same
+    with another red primary."""
+    from PIL import ImageCms
+    srgb = bytearray(ImageCms.ImageCmsProfile(
+        ImageCms.createProfile("sRGB")).tobytes())
+    srgb[24:36] = bytes(12)
+    srgb[84:100] = bytes(16)
+    other = bytearray(srgb)
+    count = struct.unpack(">I", srgb[128:132])[0]
+    for k in range(count):
+        sig, off, _ = struct.unpack(">4sII", srgb[132 + 12 * k:144 + 12 * k])
+        if sig == b"rXYZ":
+            other[off + 8:off + 12] = struct.pack(">i", 0x8000)  # X = 0.5
+    return bytes(srgb), bytes(other)
+
+
+def gamma_reads(rng: np.random.RandomState, record):
+    """16-bit colour PNGs read as grey with libpng's file gamma from each
+    chunk that may give one, and 32-bit bit-field BMPs read as stored."""
+    def path(name):
+        return os.path.join(OUT, "reads", name)
+
+    gray = ("gray", cv2.IMREAD_GRAYSCALE)
+    anydepth = ("anydepth", cv2.IMREAD_ANYDEPTH)
+    unchanged = ("unchanged", cv2.IMREAD_UNCHANGED)
+
+    def gama(g):
+        return png_chunk(b"gAMA", struct.pack(">I", g))
+
+    srgb_chunk = png_chunk(b"sRGB", b"\0")
+    srgb_icc, other_icc = icc_profiles()
+
+    def iccp(profile):
+        return png_chunk(b"iCCP", b"ICC\0\0" + zlib.compress(profile, 9))
+
+    cases = {
+        "gama45455": gama(45455), "gama55000": gama(55000),
+        "gama220000": gama(220000), "gama94000": gama(94000),
+        "srgb": srgb_chunk, "gama55000_srgb": gama(55000) + srgb_chunk,
+        "srgb_gama220000": srgb_chunk + gama(220000),
+        "sbit12_gama55000": png_chunk(b"sBIT", bytes([12, 11, 12]))
+        + gama(55000),
+        "iccp_srgb": iccp(srgb_icc), "iccp_other": iccp(other_icc),
+        "iccp_other_gama55000": iccp(other_icc) + gama(55000),
+        "cicp_srgb": png_chunk(b"cICP", bytes([1, 13, 0, 1])),
+        "cicp_linear_gama55000": png_chunk(b"cICP", bytes([1, 8, 0, 1]))
+        + gama(55000),
+    }
+    for name, chunks in cases.items():
+        for ctype in (2, 6) if name in ("gama45455", "srgb") else (2,):
+            img = rng.randint(0, 65536, (24, 32, 4 if ctype == 6 else 3))
+            img[:3, :, 1:3] = img[:3, :, :1]        # equal samples
+            file = f"rgb{'a' if ctype == 6 else ''}16_{name}_24x32.png"
+            with open(path(file), "wb") as f:
+                f.write(png_bytes(img, ctype, chunks))
+            record(f"reads/{file}", (gray, anydepth))
+    # 32 bits with bit fields: no alpha mask in a 40-byte header (the fourth
+    # byte is cv2's alpha), an alpha mask of 0 in a 124-byte one (255)
+    bgra = rng.randint(0, 256, (20, 28, 4)).astype(np.uint8)
+    masks = struct.pack("<IIII", 0xFF0000, 0xFF00, 0xFF, 0)
+    for name, hsize in (("fields40", 40), ("fields124_noalpha", 124)):
+        stride = 28 * 4
+        data = b"".join(r.tobytes() for r in bgra[::-1])
+        info = struct.pack("<IiiHHIIiiII", hsize, 28, 20, 1, 32, 3,
+                           stride * 20, 2835, 2835, 0, 0)
+        info = info + masks[:12] if hsize == 40 else (info + masks).ljust(
+            hsize, b"\0")
+        off = 14 + len(info)
+        with open(path(f"bgra_{name}_20x28.bmp"), "wb") as f:
+            f.write(b"BM" + struct.pack("<IHHI", off + len(data), 0, 0, off)
+                    + info + data)
+        record(f"reads/bgra_{name}_20x28.bmp", (unchanged, gray))
 
 
 if __name__ == "__main__":

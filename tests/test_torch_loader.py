@@ -417,9 +417,10 @@ def test_png_disparity_needs_png_negate():
 
 def test_colour_png_as_mask_raises(tmp_path):
     """A colour PNG read as a mask goes through libpng's rgb_to_gray as
-    cv2 sets it up, equal to the JAX package's Mask; the cases whose
-    conversion the port does not reproduce still raise: a 16-bit colour
-    PNG with a gamma, and one with an ICC profile."""
+    cv2 sets it up, equal to the JAX package's Mask; a 16-bit colour PNG
+    with a gamma, or with an ICC profile (libpng takes no gamma from it),
+    reads as cv2 reads it; a colour PNG whose image data is cut short
+    raises."""
     path = str(FIXTURES / "rgb_120x160.png")
     np.testing.assert_array_equal(tsc.Mask(path).array.numpy(),
                                   np.asarray(jsc.Mask(path).as_numpy()))
@@ -430,11 +431,16 @@ def test_colour_png_as_mask_raises(tmp_path):
                       (b"iCCP", b"x\x00\x00" + zlib.compress(b"icc"))):
         (tmp_path / "g.png").write_bytes(data[:33] + png_chunk(tag, body)
                                          + data[33:])
-        for mode in ("gray", "anydepth"):
-            with pytest.raises(InvalidSampleError, match="colour PNG"):
-                decode(str(tmp_path / "g.png"), mode)
-        assert_same(decode(str(tmp_path / "g.png"), "unchanged"),
-                    cv2_read(tmp_path / "g.png", "unchanged"))
+        for mode in ("gray", "anydepth", "unchanged"):
+            assert_same(decode(str(tmp_path / "g.png"), mode),
+                        cv2_read(tmp_path / "g.png", mode))
+    idat = data.index(b"IDAT") - 4
+    n = struct.unpack(">I", data[idat:idat + 4])[0]
+    body = data[idat + 8:idat + 8 + n][:n // 2]
+    (tmp_path / "cut.png").write_bytes(data[:idat] + png_chunk(b"IDAT", body)
+                                       + png_chunk(b"IEND", b""))
+    with pytest.raises(InvalidSampleError, match="inflate"):
+        tsc.Mask(str(tmp_path / "cut.png"))
 
 
 @pytest.mark.parametrize("chunk", ["none", "gAMA 0.45455", "gAMA 0.55",
@@ -469,6 +475,77 @@ def test_colour_png_as_grey_equals_cv2(tmp_path, chunk, ctype):
     for mode in ("gray", "anydepth", "color"):
         assert_same(decode(str(tmp_path / "c.png"), mode),
                     cv2_read(tmp_path / "c.png", mode))
+
+
+PNG16_CHUNKS = {
+    "gAMA 0.45455": [(b"gAMA", struct.pack(">I", 45455))],
+    "gAMA 0.3": [(b"gAMA", struct.pack(">I", 30000))],
+    "gAMA 0.94": [(b"gAMA", struct.pack(">I", 94000))],
+    "gAMA 1.2": [(b"gAMA", struct.pack(">I", 120000))],
+    "sRGB": [(b"sRGB", b"\x00")],
+    "gAMA then sRGB": [(b"gAMA", struct.pack(">I", 55000)),
+                       (b"sRGB", b"\x00")],
+    "sRGB then gAMA": [(b"sRGB", b"\x00"),
+                       (b"gAMA", struct.pack(">I", 220000))],
+    "sBIT 10,12,9": [(b"sBIT", bytes([10, 12, 9])),
+                     (b"gAMA", struct.pack(">I", 55000))],
+    "sBIT 4": [(b"sBIT", bytes([4, 4, 4])), (b"gAMA", struct.pack(">I", 55000))],
+    "iCCP": [(b"iCCP", b"p\x00\x00" + zlib.compress(b"not a profile"))],
+    "iCCP, sRGB": [(b"iCCP", b"p\x00\x00" + zlib.compress(b"icc")),
+                   (b"sRGB", b"\x00")],
+    "cICP": [(b"cICP", bytes([1, 13, 0, 1]))],
+    "cICP, gAMA": [(b"cICP", bytes([1, 8, 0, 1])),
+                   (b"gAMA", struct.pack(">I", 55000))],
+}
+
+
+@pytest.mark.parametrize("chunks", sorted(PNG16_CHUNKS))
+@pytest.mark.parametrize("ctype", [2, 6])
+def test_colour_png16_as_grey_equals_cv2(tmp_path, chunks, ctype):
+    """16-bit RGB and RGBA PNGs read as grey, cut to 8 bits and at 16:
+    libpng's 16-bit gamma tables (their index shifted by the bits sBIT or
+    the cut to 8 bits leave out), its rounding of equal samples to 8 bits,
+    and its file gamma: sRGB over a gAMA in either order, none from an iCCP
+    or a cICP chunk."""
+    rng = np.random.RandomState(ctype)
+    img = rng.randint(0, 65536, (13, 21, 3 if ctype == 2 else 4))
+    img[:2, :, 1:3] = img[:2, :, :1]
+    raw = b"".join(b"\x00" + r.tobytes() for r in img.astype(">u2"))
+    (tmp_path / "c.png").write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + png_chunk(b"IHDR", struct.pack(">IIBBBBB", 21, 13, 16, ctype, 0, 0,
+                                         0))
+        + b"".join(png_chunk(t, d) for t, d in PNG16_CHUNKS[chunks])
+        + png_chunk(b"IDAT", zlib.compress(raw)) + png_chunk(b"IEND", b""))
+    for mode in ("gray", "anydepth", "color"):
+        assert_same(decode(str(tmp_path / "c.png"), mode),
+                    cv2_read(tmp_path / "c.png", mode))
+
+
+@pytest.mark.parametrize("hsize,alpha_mask", [
+    (40, None), (52, None), (56, 0xFF000000), (56, 0), (108, 0xFF),
+    (124, 0), (124, 0xFF0000)])
+def test_bmp_bit_fields_unchanged_equals_cv2(tmp_path, hsize, alpha_mask):
+    """A 32-bit BMP with bit fields read as stored keeps 4 channels, as cv2
+    does: the fourth byte without an alpha mask in the header, the masked
+    byte with one, 255 where the mask is 0; a mask that is not one byte
+    raises."""
+    img = np.random.RandomState(hsize).randint(0, 256, (11, 13, 4)).astype(
+        np.uint8)
+    bmp_file(tmp_path / "t.bmp", img, 32, hsize=hsize, comp=3)
+    if alpha_mask is not None:
+        data = bytearray((tmp_path / "t.bmp").read_bytes())
+        data[14 + 52:14 + 56] = struct.pack("<I", alpha_mask)
+        (tmp_path / "t.bmp").write_bytes(bytes(data))
+    for mode in ("unchanged", "color", "gray"):
+        assert_same(decode(str(tmp_path / "t.bmp"), mode),
+                    cv2_read(tmp_path / "t.bmp", mode))
+    data = bytearray((tmp_path / "t.bmp").read_bytes())
+    if hsize >= 56:
+        data[14 + 52:14 + 56] = struct.pack("<I", 0xF0F00000)
+        (tmp_path / "odd.bmp").write_bytes(bytes(data))
+        with pytest.raises(InvalidSampleError, match="alpha mask"):
+            decode(str(tmp_path / "odd.bmp"), "unchanged")
 
 
 @pytest.mark.parametrize("depth", [8, 16])

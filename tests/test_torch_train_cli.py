@@ -6,7 +6,9 @@ the frozen detector unchanged), ``train_on_chairs --max_steps 2`` then
 ported, and the card rule: without ``--cpu`` both commands train on the
 CUDA card, and raise without one."""
 
+import glob
 import math
+import os
 
 import numpy as np
 
@@ -66,14 +68,64 @@ def test_raft_train_then_eval_from_checkpoint(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [["--multihost"],
                                    ["--steps_per_dispatch", "4"],
-                                   ["--log", "tensorboard"], []])
+                                   ["--log", "tensorboard", "--multihost"],
+                                   []])
 def test_train_on_chairs_refuses_what_is_not_ported(flags, tmp_path):
-    """Flags of later ROADMAP items, and FlyingChairs2 on disk (no
-    --sample), raise."""
+    """Flags of later ROADMAP items, beside ported ones too (``--log``),
+    and FlyingChairs2 on disk (no --sample), raise."""
     sample = [] if not flags else ["--sample"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_on_chairs.main(["--cpu", "--tiny", *sample, *flags,
                               "--log_dir", str(tmp_path)])
+
+
+def event_scalars(ckpt_dir):
+    """{tag: [steps]} of the scalars in the run's one event file, read by
+    TensorBoard's loader (which checks each record's CRCs)."""
+    from tensorboard.backend.event_processing.event_file_loader import (
+        LegacyEventFileLoader)
+    (path,) = glob.glob(os.path.join(ckpt_dir, "*tfevents*"))
+    tags = {}
+    for event in LegacyEventFileLoader(path).Load():
+        for value in event.summary.value:
+            assert value.WhichOneof("value") == "simple_value"
+            assert math.isfinite(value.simple_value)
+            tags.setdefault(value.tag, []).append(event.step)
+    return tags
+
+
+@pytest.mark.parametrize("model", ["detr", "deformable",
+                                   "panoptic_deformable"])
+def test_train_on_coco_bf16_with_tensorboard(model, tmp_path):
+    """``--bf16 --log tensorboard``: the model computes in bfloat16 (its
+    norms in float32) over float32 masters, the checkpoint holds float32
+    weights, and the run's directory an event file of the validation
+    metrics (the train ones are logged every 10 steps, as the JAX
+    package's ``MetricsCallback`` does)."""
+    trainer = train_on_coco.main(
+        ["--cpu", "--sample", "--tiny", "--fast_dev_run", "--bf16", "--log",
+         "tensorboard", "--model", model, "--size", "64", "96",
+         "--batch_size", "2", "--log_dir", str(tmp_path)])
+    assert trainer.global_step == 2
+    dtypes = {n: p.dtype for n, p in trainer.model.named_parameters()}
+    assert torch.bfloat16 in dtypes.values()
+    assert all(d == torch.float32 for n, d in dtypes.items() if "norm" in n)
+    assert trainer.optimizer.low
+    saved = trainer.ckpt.restore_tree()["model"]
+    assert all(saved[n].dtype == torch.float32 for n in dtypes)
+    assert math.isfinite(trainer.last_val_metrics["val_loss_total"])
+    tags = event_scalars(trainer.ckpt_dir)
+    assert tags["val/loss_total"] == [2]
+    assert not any(tag.startswith("train/") for tag in tags)
+
+
+def test_train_on_chairs_with_tensorboard(tmp_path):
+    trainer = train_on_chairs.main(
+        ["--cpu", "--sample", "--tiny", "--max_steps", "2", "--batch_size",
+         "2", "--iters", "2", "--log", "tensorboard", "--log_dir",
+         str(tmp_path)])
+    tags = event_scalars(trainer.ckpt_dir)
+    assert tags["val/EPE"] == [2] and "val/1px" in tags
 
 
 @pytest.mark.parametrize("command,argv", [

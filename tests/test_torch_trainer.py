@@ -170,11 +170,13 @@ def test_train_on_coco_command(model, tmp_path):
     assert all(p.device.type == "cpu" for p in trainer.model.parameters())
 
 
-@pytest.mark.parametrize("flags", [["--log", "tensorboard"], ["--bf16"],
+@pytest.mark.parametrize("flags", [["--log", "tensorboard", "--tp", "2"],
+                                   ["--bf16", "--multihost"],
                                    ["--tp", "2"], ["--multihost"]])
 def test_train_on_coco_refuses_what_is_not_ported(flags, tmp_path):
-    """Flags of later ROADMAP items raise (``--multiscale`` and COCO on
-    disk are ported: ``tests/test_torch_train_cli.py``)."""
+    """Flags of later ROADMAP items raise, beside ported ones too
+    (``--multiscale``, COCO on disk, ``--bf16`` and ``--log`` are ported:
+    ``tests/test_torch_train_cli.py``)."""
     from aloception_tpu_torch.commands.train_on_coco import main
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["--cpu", "--tiny", "--sample", *flags,
