@@ -154,14 +154,6 @@ class BaseDataset:
                              drop_last)
 
 
-def _make(dataset, idx: int, epoch: int):
-    """Sample ``idx`` of ``dataset`` as in ``epoch``; a dataset that is no
-    ``BaseDataset`` (the flow samples) is indexed."""
-    if isinstance(dataset, BaseDataset):
-        return dataset.get(idx, epoch)
-    return dataset[idx]
-
-
 class LoaderFactory:
     """Re-iterable loader: each iteration is an epoch, shuffled by
     ``np.random.RandomState(seed + epoch)`` (``seed=None``: unseeded)."""
@@ -221,7 +213,7 @@ class _Queue:
                 i = self.next_submit
                 self.next_submit += 1
             try:
-                res = _make(self.dataset, self.order[i], self.epoch)
+                res = self.dataset.get(self.order[i], self.epoch)
             except Exception as e:  # raised to the consumer at its turn
                 res = e
             with self.cv:
@@ -274,7 +266,7 @@ class PrefetchIterator:
 
     def _get(self, i: int):
         if not self.num_workers:
-            return _make(self.dataset, self.order[i], self.epoch)
+            return self.dataset.get(self.order[i], self.epoch)
         return self._queue.take(i)
 
     def close(self):

@@ -4,15 +4,18 @@
 Examples
 --------
 python -m aloception_tpu_torch.commands.eval_on_sintel --cpu --sample --tiny --limit_samples 2
-python -m aloception_tpu_torch.commands.eval_on_sintel --sample --weights raft-things.pth
+python -m aloception_tpu_torch.commands.eval_on_sintel --weights raft-things.pth
 
-Each pair of frames goes Frame -> ``norm_minmax_sym`` -> ``Padder`` (to a
-multiple of 8) -> RAFT (``only_last``) -> ``unpad``, and its EPE is the mean
-over pixels of the flow's distance to the ground truth. Runs on the CUDA
-card, or on the CPU with ``--cpu``; without a card and without ``--cpu`` it
-raises. Only the offline synthetic sample (``--sample``) is ported (Sintel
-on disk: ROADMAP A10). Without ``--weights`` or ``--ckpt_dir`` the weights
-are random, from a seeded generator.
+Reads the clean pass of Sintel's ``training/`` folder from the directory
+that the dataset config (``~/.aloception_tpu/alodataset_config.json``, key
+"Sintel") names, decoded by two threads ahead of the model; ``--sample``
+reads the offline synthetic sample instead. Each pair of frames goes Frame
+-> ``norm_minmax_sym`` -> ``Padder`` (to a multiple of 8) -> RAFT
+(``only_last``) -> ``unpad``, and its EPE is the mean over pixels of the
+flow's distance to the ground truth. Runs on the CUDA card, or on the CPU
+with ``--cpu``; without a card and without ``--cpu`` it raises. Without
+``--weights`` or ``--ckpt_dir`` the weights are random, from a seeded
+generator.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import argparse
 def main(argv=None) -> float:
     p = argparse.ArgumentParser(__doc__)
     p.add_argument("--sample", action="store_true",
-                   help="use the offline synthetic Sintel sample")
+                   help="read the offline synthetic sample, not the Sintel "
+                        "directory")
     p.add_argument("--small", action="store_true", help="RAFT-small")
     p.add_argument("--tiny", action="store_true",
                    help="tiny model for smoke runs")
@@ -41,7 +45,7 @@ def main(argv=None) -> float:
     args = p.parse_args(argv)
 
     import torch
-    from aloception_tpu_torch.alodataset import SintelFlowDataset
+    from aloception_tpu_torch.alodataset import SintelFlowDataset, Split
     from aloception_tpu_torch.models.raft import (Padder, RAFTBase, built,
                                                   raft, raft_small)
     from aloception_tpu_torch.models.transformers import entry_device
@@ -63,12 +67,13 @@ def main(argv=None) -> float:
         print(f"[eval] restored step "
               f"{ckpt.best_step() if args.best else ckpt.last_step()}")
 
-    ds = SintelFlowDataset(sample=args.sample)
+    ds = SintelFlowDataset(sample=args.sample, split=Split.TRAIN,
+                           sequence_size=2)
     epes = []
-    for i in range(len(ds)):
+    for i, frames in enumerate(ds.stream_loader(num_workers=2)):
         if args.limit_samples and i >= args.limit_samples:
             break
-        frames = ds[i].to(device).norm_minmax_sym()
+        frames = frames.to(device).norm_minmax_sym()
         flow_slot = frames[0].get_child("flow")
         if isinstance(flow_slot, dict):
             flow_slot = next(iter(flow_slot.values()))

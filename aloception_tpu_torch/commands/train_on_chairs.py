@@ -4,13 +4,16 @@
 Examples
 --------
 python -m aloception_tpu_torch.commands.train_on_chairs --cpu --sample --tiny --max_steps 2
-python -m aloception_tpu_torch.commands.train_on_chairs --sample --batch_size 10 --max_steps 100
+python -m aloception_tpu_torch.commands.train_on_chairs --batch_size 10 --max_steps 100
 
-Runs on the CUDA card, or on the CPU with ``--cpu``; without a card and
-without ``--cpu`` it raises. Only the offline synthetic sample (``--sample``)
-is ported (FlyingChairs2 on disk: ROADMAP A10). With ``--max_steps`` the
-learning rate follows the OneCycle schedule over max_steps + 100 updates, as
-the reference. A checkpoint it writes restores in ``eval_on_sintel
+Reads FlyingChairs2 from the directory that the dataset config
+(``~/.aloception_tpu/alodataset_config.json``, key "FlyingChairs2") names,
+its ``train/`` pairs for training and ``val/`` for validation, decoded by
+``--num_workers`` threads; ``--sample`` reads the offline synthetic sample
+instead. Runs on the CUDA card, or on the CPU with ``--cpu``; without a card
+and without ``--cpu`` it raises. With ``--max_steps`` the learning rate
+follows the OneCycle schedule over max_steps + 100 updates, as the
+reference. A checkpoint it writes restores in ``eval_on_sintel
 --ckpt_dir``.
 """
 
@@ -26,11 +29,14 @@ NOT_PORTED = {"multihost": "A12", "steps_per_dispatch": "A12"}
 def main(argv=None):
     p = argparse.ArgumentParser(__doc__)
     p.add_argument("--sample", action="store_true",
-                   help="use the offline synthetic FlyingChairs2 sample")
+                   help="read the offline synthetic sample, not the "
+                        "FlyingChairs2 directory")
     p.add_argument("--small", action="store_true", help="RAFT-small")
     p.add_argument("--tiny", action="store_true",
                    help="tiny model for smoke runs")
     p.add_argument("--batch_size", type=int, default=2)
+    p.add_argument("--num_workers", type=int, default=2,
+                   help="threads that decode the pairs")
     p.add_argument("--max_epochs", type=int, default=1)
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--fast_dev_run", action="store_true",
@@ -61,8 +67,8 @@ def main(argv=None):
                                             MetricsCallback, make_raft_trainer)
 
     device = entry_device("cpu" if args.cpu else None)
-    dm = Data2RAFT(batch_size=args.batch_size, sample=args.sample,
-                   seed=args.seed)
+    dm = Data2RAFT(batch_size=args.batch_size, num_workers=args.num_workers,
+                   sample=args.sample, seed=args.seed)
     kwargs = dict(data_module=dm, small=args.small, iters=args.iters,
                   run_id=args.run_id, num_steps=args.max_steps, device=device,
                   seed=args.seed, log=args.log,

@@ -17,8 +17,8 @@ With ``return_masks`` the frames carry their objects' ``segmentation``
 Masks, which flip, crop and resize (bilinearly, so a resized mask is soft)
 with them; a batch keeps them as a per-frame list.
 
-``Data2RAFT`` reads the offline synthetic FlyingChairs2 and Sintel samples;
-FlyingThings3D, ChairsSDHom and the datasets on disk wait in ROADMAP A10.
+``Data2RAFT`` reads FlyingChairs2, FlyingThings3D, ChairsSDHom or Sintel,
+on disk or as the offline samples.
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ import torch
 from .. import aloscene
 from ..alodataset import (CocoBaseDataset, CocoDetectionDataset,
                           FlyingChairs2Dataset, SintelFlowDataset, Split)
+from ..alodataset.flying_things import (ChairsSDHomDataset,
+                                        FlyingThings3DSubsetDataset)
 from ..alodataset import transforms as T
 from ..models.detr.criterion import targets_from_frames
 
@@ -153,38 +155,44 @@ class CocoDetection2Detr:
 
 
 class Data2RAFT:
-    """Flow datasets -> RAFT batches; ``dataset`` picks "chairs" or
-    "sintel" (the offline samples; "things" and "sdhom" wait in ROADMAP
-    A10). ``size`` is taken and not used, as in the JAX package: the
-    samples' frames are 96x128. ``seed`` seeds the train loader's
-    shuffle."""
+    """Flow datasets -> RAFT batches; ``dataset`` picks "chairs"
+    (FlyingChairs2), "things" (FlyingThings3D subset), "sdhom"
+    (ChairsSDHom) or "sintel", on disk (TRAIN and VAL splits; ``**
+    dataset_kwargs``, e.g. ``dataset_dir=``, pass through) or as the offline
+    samples (``sample=True``, the train split twice). Samples are made by
+    ``num_workers`` threads. ``size`` is taken and not used, as in the JAX
+    package: batches keep the frames' own size. ``seed`` seeds the train
+    loader's shuffle."""
 
     DATASETS = ("chairs", "things", "sdhom", "sintel")
 
-    def __init__(self, batch_size: int = 2, sample: bool = False,
-                 size: Tuple[int, int] = (368, 496), dataset: str = "chairs",
-                 seed: int = 0):
+    def __init__(self, batch_size: int = 2, num_workers: int = 2,
+                 sample: bool = False, size: Tuple[int, int] = (368, 496),
+                 dataset: str = "chairs", seed: int = 0, **dataset_kwargs):
         if dataset not in self.DATASETS:
             raise ValueError(f"dataset must be one of {self.DATASETS}")
-        if dataset in ("things", "sdhom"):
-            raise NotImplementedError(
-                f"the {dataset} dataset is not ported yet (ROADMAP A10)")
         self.batch_size = batch_size
+        self.num_workers = num_workers
         self.size = size
         self.seed = seed
-        # the samples have one split: validation reads the train pairs, as
-        # the JAX package's sample mode does
-        self.train_dataset = (FlyingChairs2Dataset if dataset == "chairs"
-                              else SintelFlowDataset)(sample=sample)
-        self.val_dataset = self.train_dataset
+        cls = {"chairs": FlyingChairs2Dataset,
+               "things": FlyingThings3DSubsetDataset,
+               "sdhom": ChairsSDHomDataset,
+               "sintel": SintelFlowDataset}[dataset]
+        self.train_dataset = cls(split=Split.TRAIN, sample=sample,
+                                 **dataset_kwargs)
+        self.val_dataset = cls(split=Split.TRAIN if sample else Split.VAL,
+                               sample=sample, **dataset_kwargs)
 
     def train_dataloader(self):
-        return self.train_dataset.train_loader(batch_size=self.batch_size,
-                                               seed=self.seed)
+        return self.train_dataset.train_loader(
+            batch_size=self.batch_size, num_workers=self.num_workers,
+            seed=self.seed)
 
     def val_dataloader(self):
-        return self.val_dataset.train_loader(batch_size=self.batch_size,
-                                             shuffle=False)
+        return self.val_dataset.train_loader(
+            batch_size=self.batch_size, num_workers=self.num_workers,
+            shuffle=False)
 
     def prepare_batch(self, frames_list: List, training: bool = True) -> Dict:
         """T=2 Frames -> {"inputs": (frame1, frame2) (B, 3, H, W) in

@@ -211,18 +211,23 @@ def build_panoptic_dir(root: str, src: Sequence[str], seed: int = 0,
     return root
 
 
-def write_png(path: str, rgb: np.ndarray):
-    """An 8-bit RGB (H, W, 3) PNG, unfiltered, deflated with zlib."""
+def write_png(path: str, img: np.ndarray, level: int = 6):
+    """A grey (H, W) or RGB (H, W, 3) PNG of 8 (uint8) or 16 (uint16) bits,
+    unfiltered, deflated with zlib at ``level``."""
     import struct
     import zlib
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-    h, w, _ = rgb.shape
-    raw = b"".join(b"\x00" + row.tobytes()
-                   for row in np.ascontiguousarray(rgb, np.uint8))
+    depth = 16 if img.dtype == np.uint16 else 8
+    h, w = img.shape[:2]
+    ctype = 2 if img.ndim == 3 else 0
+    rows = np.ascontiguousarray(img, ">u2" if depth == 16 else np.uint8)
+    raw = b"".join(b"\x00" + row.tobytes() for row in rows)
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
+                                             0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, level))
+                + chunk(b"IEND", b""))

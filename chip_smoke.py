@@ -192,6 +192,32 @@
     images/s after the first batch at each padded size, those batches' ms
     alone, data ms a batch); a ``FromDirectoryDataset`` request of the
     fixture folder through the Frame path (12 launches).
+20. The flow datasets on disk (``flow_disk_phase``; RAFT runs no kernel of
+    the port, both counts read around the path and 0): FlyingChairs2 (60
+    train and 10 val pairs at its published 384x512, smooth seeded flows,
+    occlusion PNGs) and Sintel (2 scenes x 6 frames at 436x1024, clean
+    pass, ``.flo`` and occlusions) written by ``utils/flow_fixture.py``
+    into a temporary root that the dataset config names; ``train_on_chairs
+    --batch_size 10 --max_steps 6`` from those files (RAFT hidden 128, 4
+    levels, radius 4, 12 iterations, float32): per step host ms, the
+    workers' decode ms, the consumer's wait, ``prepare_batch``, device-busy
+    ms and idle share, peak memory, one sync a batch; ``eval_on_sintel
+    --limit_samples 8 --ckpt_dir`` on its checkpoint (EPE, pairs/s after
+    the first pair, decode ms a pair), and over 2 pairs on the card and
+    with ``--cpu`` (EPE within 1e-3 relative).
+21. KITTI and Waymo on disk (``kitti_waymo_disk_phase``, no kernel): KITTI
+    scene flow 2015 (8 frames at 375x1242, 16-bit flow and disparity PNGs,
+    the published P_rect_02/P_rect_03) through float32 RAFT with
+    ``Padder``, the EPE over the flow's valid pixels on the card against
+    the CPU's (2 pairs, 1e-3 relative); ``KittiObject`` (100 frames, 30
+    ``label_2`` boxes of the 8 classes, P2) into ``ApMetrics3D`` (maps
+    equal to the CPU's, ms per ``add_sample``); ``KittiDepth`` (4 sparse
+    maps) into ``DepthMetrics`` (1e-9 relative); a Waymo TFRecord (10 front
+    camera frames at 1280x1920, 30 3-D boxes a frame, the calibration)
+    through ``WaymoDataset.prepare`` and T=2 sequences, each frame's boxes,
+    intrinsic and extrinsic on the card, the vertices in the camera frame,
+    their projections and the enclosing 2-D boxes against the CPU's (1e-4
+    of max(1, max|ref|)).
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
@@ -4142,11 +4168,12 @@ def bucket_kernel_gate(device):
 
 class _DataTimes:
     """Host seconds of each sample's decode (``getitem``) and transforms
-    (``transform_fn``), by dataset index, recorded from the loader's worker
-    threads; and of each train batch's ``prepare_batch`` with its padded
-    size, in the consumer's thread."""
+    (``transform_fn``, where the dataset has one), by dataset index,
+    recorded from the loader's worker threads; and of each train batch's
+    ``prepare_batch`` with its padded size (``hw`` of its inputs), in the
+    consumer's thread."""
 
-    def __init__(self, dm):
+    def __init__(self, dm, hw=lambda inputs: tuple(inputs[0].shape[1:3])):
         import threading
         self.lock, self.local = threading.Lock(), threading.local()
         self.decode, self.transform, self.batches = {}, {}, []
@@ -4174,9 +4201,11 @@ class _DataTimes:
             if training:
                 self.batches.append(dict(
                     seconds=time.perf_counter() - t,
-                    hw=tuple(out["inputs"][0].shape[1:3]), prepared=out))
+                    hw=hw(out["inputs"]), prepared=out))
             return out
-        ds.getitem, ds.transform_fn = timed_getitem, timed_transform
+        ds.getitem = timed_getitem
+        if tfn is not None:
+            ds.transform_fn = timed_transform
         dm.prepare_batch = timed_prepare
 
 
@@ -4454,6 +4483,536 @@ def coco_disk_phase(device):
     return out
 
 
+# ----------------------------------------------------------------------
+# The flow, KITTI and Waymo datasets on disk
+# ----------------------------------------------------------------------
+# FlyingChairs2 at its published 384x512 (60 train and 10 val pairs) and
+# the reference's chairs stage (train_standard.sh: bs10); Sintel at its
+# 436x1024, 2 scenes x 6 frames of the clean pass; KITTI at 375x1242 with
+# the published P_rect_02/P_rect_03; the Waymo front camera at 1280x1920
+CHAIRS_PAIRS, CHAIRS_BATCH, CHAIRS_STEPS = (60, 10), 10, 6
+CHAIRS_HW = (384, 512)
+SINTEL_SCENES, SINTEL_FRAMES = 2, 6
+SINTEL_EVAL_PAIRS, SINTEL_CPU_PAIRS = 8, 2
+KITTI_SFLOW_FRAMES, KITTI_SFLOW_CPU = 8, 2
+KITTI_OBJECT_FRAMES, KITTI_OBJECT_BOXES, KITTI_OBJECT_PRED = 100, 30, 100
+KITTI_DEPTH_DRIVES, KITTI_DEPTH_FRAMES = 2, 2
+WAYMO_FRAMES, WAYMO_BOXES, WAYMO_HW = 10, 30, (1280, 1920)
+
+
+def _kernel_counts(tag):
+    """The hand-written kernels' counts since ``_reset_counts``; a path that
+    launched one raises."""
+    counts = dict(zip(("ms_deform_attn", "msda_backward", "hungarian"),
+                      _counts()))
+    if any(counts.values()):
+        raise AssertionError(f"the {tag} path launched a kernel: {counts}")
+    return counts
+
+
+def chairs_train_phase(device, log_dir):
+    """``train_on_chairs --batch_size 10 --max_steps 6`` on the FlyingChairs2
+    directory the config names (RAFT: hidden 128, 4 levels, radius 4, 12
+    iterations, float32, TF32 off, random weights from the seeded global
+    generator), its pairs decoded by the loader's 2 worker threads: per
+    step host ms, the workers' decode ms of its pairs, the consumer's wait
+    for the batch and its ``prepare_batch`` ms, peak memory, syncs and
+    kernel counts. The last step runs under a device-only trace, from the
+    end of the step before (the batch's wait, ``prepare_batch`` and copy
+    included): its device-busy ms and idle share (a trace of a RAFT step
+    holds ~200,000 activities, ~30 s of the profiler's processing each, so
+    one step is traced). Batches are 384x512: ``Data2RAFT`` takes ``size``
+    and does not use it, in both packages."""
+    import math
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    import aloception_tpu_torch.train as train_pkg
+    from aloception_tpu_torch.commands import train_on_chairs
+
+    recorder = make_recorder()
+    record_row = recorder.on_train_batch_end
+    traced = profile(activities=[ProfilerActivity.CUDA])
+
+    def on_end(trainer, metrics, step):
+        if step == CHAIRS_STEPS:
+            torch.cuda.synchronize()
+            traced.__exit__(None, None, None)
+        record_row(trainer, metrics, step)
+        recorder.rows[-1]["peak"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        if step == CHAIRS_STEPS - 1:
+            traced.__enter__()
+    recorder.on_train_batch_end = on_end
+    made, waits, factory = {}, [], train_pkg.make_raft_trainer
+
+    def instrumented(**kwargs):
+        dm = kwargs["data_module"]
+        made["times"] = _DataTimes(dm, hw=lambda x: tuple(x[0].shape[-2:]))
+        loader = dm.train_dataloader
+
+        def timed_loader():
+            batches = iter(loader())
+            while True:
+                t = time.perf_counter()
+                try:
+                    batch = next(batches)
+                except StopIteration:
+                    return
+                waits.append(time.perf_counter() - t)
+                yield batch
+        dm.train_dataloader = timed_loader
+        kwargs["callbacks"] = list(kwargs["callbacks"]) + [recorder]
+        trainer = factory(**kwargs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        made["t0"] = time.perf_counter()
+        # the model's build synchronises; the steps count from here
+        made["syncs"] = len(_sync_messages(recorder.caught))
+        return trainer
+
+    torch.manual_seed(0)
+    _reset_counts()
+    with mock.patch.object(train_pkg, "make_raft_trainer", instrumented):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                recorder.caught = caught
+                trainer = train_on_chairs.main(
+                    ["--batch_size", str(CHAIRS_BATCH), "--max_steps",
+                     str(CHAIRS_STEPS), "--log_dir", log_dir])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    dm, data = trainer.data_module, made["times"]
+    if trainer.global_step != CHAIRS_STEPS or len(data.batches) != \
+            CHAIRS_STEPS or len(dm.train_dataset) != CHAIRS_PAIRS[0]:
+        raise AssertionError(f"train_on_chairs: {trainer.global_step} steps, "
+                             f"{len(dm.train_dataset)} pairs")
+    order = np.arange(len(dm.train_dataset))
+    np.random.RandomState(0).shuffle(order)      # seed 0, epoch 0
+    steps, prev = [], dict(t=made["t0"], counts=(0, 0, 0),
+                           syncs=made["syncs"])
+    for k, row in enumerate(recorder.rows[:CHAIRS_STEPS]):
+        idx = order[k * CHAIRS_BATCH:(k + 1) * CHAIRS_BATCH]
+        step = dict(
+            hw=list(data.batches[k]["hw"]), ms=(row["t"] - prev["t"]) * 1e3,
+            decode_ms=sum(data.decode[i] for i in idx) * 1e3,
+            wait_ms=waits[k] * 1e3,
+            prepare_ms=data.batches[k]["seconds"] * 1e3,
+            peak_gib=row["peak"], syncs=row["syncs"] - prev["syncs"],
+            counts=[a - b for a, b in zip(row["counts"], prev["counts"])],
+            loss=row["metrics"]["loss_total"], epe=row["metrics"]["epe"])
+        if step["hw"] != list(CHAIRS_HW) or step["syncs"] != 1 or \
+                any(step["counts"]) or not math.isfinite(step["loss"]):
+            raise AssertionError(f"train_on_chairs step {k}: {step}")
+        steps.append(step)
+        prev = row
+    n_act, busy, window = _device_busy(traced)
+    last = steps[-1]
+    top = sorted(traced.key_averages(),
+                 key=lambda a: -_device_us(a, self_only=True))[:6]
+    last.update(device_busy_ms=busy / 1e3, idle=1 - busy / window,
+                idle_of_step=1 - busy / 1e3 / last["ms"], activities=n_act,
+                top_device_ms={a.key[:80]: _device_us(a, self_only=True) / 1e3
+                               for a in top})
+    for k, s in enumerate(steps):
+        trace = "" if "idle" not in s else (
+            f"; traced: device-busy {s['device_busy_ms']:.1f} ms, idle "
+            f"share {s['idle']:.4f} of the device window and "
+            f"{s['idle_of_step']:.4f} of the step ({s['activities']} "
+            f"activities); device ms of its largest kernels "
+            f"{ {k: round(v, 1) for k, v in s['top_device_ms'].items()} }")
+        print(f"train_on_chairs from files, step {k}: {s['hw']}, "
+              f"{s['ms']:.1f} ms (host clock); the workers' decode of its "
+              f"{CHAIRS_BATCH} pairs {s['decode_ms']:.1f} ms, the consumer's "
+              f"wait {s['wait_ms']:.1f} ms, prepare_batch "
+              f"{s['prepare_ms']:.1f} ms; peak {s['peak_gib']:.2f} GiB; "
+              f"syncs {s['syncs']}; loss_total {s['loss']:.4f}, epe "
+              f"{s['epe']:.4f}{trace}")
+    timed = steps[1:-1]
+    out = dict(steps=steps, val=trainer.last_val_metrics,
+               mean_ms=float(np.mean([s["ms"] for s in timed])),
+               mean_decode_ms=float(np.mean([s["decode_ms"] for s in timed])),
+               mean_wait_ms=float(np.mean([s["wait_ms"] for s in timed])),
+               mean_prepare_ms=float(np.mean([s["prepare_ms"]
+                                              for s in timed])),
+               peak_gib=max(s["peak_gib"] for s in steps))
+    print(f"train_on_chairs from files: RAFT fp32 bs{CHAIRS_BATCH} "
+          f"{CHAIRS_HW} {RAFT_ITERS} iterations, {CHAIRS_STEPS} steps; "
+          f"steps 1-{CHAIRS_STEPS - 2} (untraced): {out['mean_ms']:.1f} ms a "
+          f"step (host clock), {CHAIRS_BATCH * 1e3 / out['mean_ms']:.2f} "
+          f"pairs/s, decode {out['mean_decode_ms']:.1f} ms of worker time a "
+          f"batch, wait {out['mean_wait_ms']:.1f} ms, prepare_batch "
+          f"{out['mean_prepare_ms']:.1f} ms; peak {out['peak_gib']:.2f} GiB; "
+          f"validation on val {trainer.last_val_metrics}")
+    return trainer, out
+
+
+def sintel_eval_phase(ckpt_dir):
+    """``eval_on_sintel --limit_samples 8 --ckpt_dir`` on the Sintel
+    directory the config names, on the card: the EPE, pairs/s after the
+    first pair (the first pair's end synchronised, the last by the
+    command's result), the workers' decode ms a pair and the consumer's
+    wait; then the same command over 2 pairs on the card and with
+    ``--cpu`` on the same checkpoint, whose EPEs must agree within 1e-3
+    relative."""
+    import math
+    from aloception_tpu_torch.alodataset import SintelFlowDataset
+    from aloception_tpu_torch.commands import eval_on_sintel
+    decode, waits, marks = [], [], {}
+    getitem, stream = SintelFlowDataset.getitem, SintelFlowDataset.stream_loader
+
+    def timed_getitem(self, idx):
+        t = time.perf_counter()
+        out = getitem(self, idx)
+        decode.append(time.perf_counter() - t)
+        return out
+
+    def timed_stream(self, num_workers=2):
+        pairs = stream(self, num_workers)
+
+        def requests():
+            for k in range(len(self)):
+                if k == 1:
+                    torch.cuda.synchronize()
+                    marks["first"] = time.perf_counter()
+                t = time.perf_counter()
+                frames = next(pairs)
+                waits.append(time.perf_counter() - t)
+                yield frames
+        return requests()
+
+    _reset_counts()
+    with mock.patch.object(SintelFlowDataset, "getitem", timed_getitem), \
+            mock.patch.object(SintelFlowDataset, "stream_loader",
+                              timed_stream):
+        t0 = time.perf_counter()
+        epe = eval_on_sintel.main(["--limit_samples", str(SINTEL_EVAL_PAIRS),
+                                   "--ckpt_dir", ckpt_dir])
+        end = time.perf_counter()
+    n = min(SINTEL_EVAL_PAIRS, SINTEL_SCENES * (SINTEL_FRAMES - 1))
+    out = dict(epe=epe, pairs=n, pairs_per_s=(n - 1) / (end - marks["first"]),
+               first_pair_s=marks["first"] - t0,
+               decode_ms=sum(decode) / len(decode) * 1e3,
+               wait_ms=sum(waits[:n]) / n * 1e3)
+    card = eval_on_sintel.main(["--limit_samples", str(SINTEL_CPU_PAIRS),
+                                "--ckpt_dir", ckpt_dir])
+    t = time.perf_counter()
+    cpu = eval_on_sintel.main(["--cpu", "--limit_samples",
+                               str(SINTEL_CPU_PAIRS), "--ckpt_dir", ckpt_dir])
+    out.update(card_epe_2=card, cpu_epe_2=cpu, rel=abs(card - cpu) / abs(cpu),
+               cpu_s_a_pair=(time.perf_counter() - t) / SINTEL_CPU_PAIRS,
+               kernel_launches=_kernel_counts("eval_on_sintel"))
+    print(f"eval_on_sintel from files ({SINTEL_HW}, clean pass, the chairs "
+          f"run's checkpoint): EPE {epe:.4f} over {n} pairs; "
+          f"{out['pairs_per_s']:.2f} pairs/s after the first pair (start to "
+          f"the first pair's end {out['first_pair_s']:.2f} s, the model's "
+          f"build and restore included); the workers' decode "
+          f"{out['decode_ms']:.1f} ms a pair, the consumer's wait "
+          f"{out['wait_ms']:.1f} ms a pair; over {SINTEL_CPU_PAIRS} pairs card "
+          f"EPE {card:.6f}, CPU {cpu:.6f}, relative {out['rel']:.2e} (gate "
+          f"1e-3; the CPU {out['cpu_s_a_pair']:.1f} s a pair)")
+    if not (math.isfinite(epe) and out["rel"] <= 1e-3):
+        raise AssertionError(f"eval_on_sintel from files: {out}")
+    return out
+
+
+def flow_disk_phase(device):
+    """FlyingChairs2 and Sintel directories at their published sizes,
+    written from seeds (``utils/flow_fixture.py``) into a temporary root
+    that the dataset config names; ``train_on_chairs`` and
+    ``eval_on_sintel`` from those files. RAFT runs no kernel of the port:
+    both counts are read around the path and must stay 0."""
+    import tempfile
+    from aloception_tpu_torch.alodataset import base_dataset
+    from aloception_tpu_torch.utils import flow_fixture as ff
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        chairs = ff.build_chairs2_dir(os.path.join(root, "chairs"), seed=0,
+                                      n_train=CHAIRS_PAIRS[0],
+                                      n_val=CHAIRS_PAIRS[1], hw=CHAIRS_HW)
+        sintel = ff.build_sintel_dir(os.path.join(root, "sintel"), seed=1,
+                                     scenes=SINTEL_SCENES,
+                                     frames=SINTEL_FRAMES, hw=SINTEL_HW)
+        out = {"write_s": time.perf_counter() - t0}
+        config = os.path.join(root, "alodataset_config.json")
+        with open(config, "w") as f:
+            json.dump({"FlyingChairs2": chairs, "Sintel": sintel}, f)
+        with mock.patch.object(base_dataset, "CONFIG_PATH", config):
+            t = time.perf_counter()
+            trainer, out["train"] = chairs_train_phase(
+                device, os.path.join(root, "expe"))
+            out["train"]["kernel_launches"] = _kernel_counts("train_on_chairs")
+            out["train"]["seconds"] = time.perf_counter() - t
+            ckpt_dir = trainer.ckpt_dir
+            del trainer
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            out["eval"] = sintel_eval_phase(ckpt_dir)
+            out["eval"]["seconds"] = time.perf_counter() - t
+    out["seconds"] = time.perf_counter() - t0
+    print(f"flow_disk phase: {out['seconds']:.1f} s (writing the directories "
+          f"{out['write_s']:.1f} s, train_on_chairs "
+          f"{out['train']['seconds']:.1f} s, eval_on_sintel "
+          f"{out['eval']['seconds']:.1f} s), hand-written kernel launches 0")
+    return out
+
+
+def _masked_epe(flow, gt):
+    """Mean end-point error over the pixels ``gt``'s occlusion marks valid."""
+    valid = 1.0 - gt.get_child("occlusion").array[0]
+    err = (flow - gt.array).pow(2).sum(0).sqrt()
+    return float((err * valid).sum() / valid.sum())
+
+
+def kitti_sflow_step(device):
+    """``KittiStereoFlowSFlow2015`` (the config's directory, ``load`` all:
+    both cameras, the noc/occ disparities at both times, the noc/occ flows)
+    -> the left pair through float32 RAFT (12 iterations, ``only_last``,
+    ``Padder`` to 376x1248) on the card, the EPE over ``flow_occ``'s valid
+    pixels; the first 2 pairs again on the CPU (1e-3 relative)."""
+    from aloception_tpu_torch.alodataset import KittiStereoFlowSFlow2015
+    from aloception_tpu_torch.models.raft import Padder, raft
+    ds = KittiStereoFlowSFlow2015()
+    t = time.perf_counter()
+    items = [ds[i] for i in range(len(ds))]
+    read_ms = (time.perf_counter() - t) / len(items) * 1e3
+    for item in items:
+        disp = item["left"].get_child("disparity")
+        if set(item) != {"left", "right"} or set(disp) != {
+                "disp_noc", "disp_occ"} or disp["disp_occ"].shape != (
+                2, 1) + KITTI_HW or disp["disp_occ"].baseline is None:
+            raise AssertionError("a KITTI scene-flow item lacks a label")
+    cpu_model = raft(device="cpu", generator=torch.Generator().manual_seed(130))
+    model = copy.deepcopy(cpu_model).to(device)
+
+    def epe_of(m, left, where):
+        frames = left.to(where).norm_minmax_sym()
+        f1, f2 = (frames[t].as_layout(("C", "H", "W"))[None] for t in (0, 1))
+        padder = Padder(f1.shape)
+        with torch.inference_mode():
+            flow = padder.unpad(m(*padder.pad(f1, f2), iters=RAFT_ITERS,
+                                  only_last=True))[0]
+        return _masked_epe(flow, frames[0].get_child("flow")["flow_occ"]), \
+            tuple(padder.pad(f1)[0].shape[-2:])
+    card, ms = [], []
+    for item in items:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        epe, padded = epe_of(model, item["left"], device)
+        ms.append((time.perf_counter() - t) * 1e3)
+        card.append(epe)
+    cpu = [epe_of(cpu_model, item["left"], "cpu")[0]
+           for item in items[:KITTI_SFLOW_CPU]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    print(f"KITTI scene flow 2015 from files: {len(items)} frames "
+          f"{KITTI_HW} (read {read_ms:.1f} ms an item: 4 images, 4 "
+          f"disparities, 2 flows), baseline "
+          f"{items[0]['left'].get_child('disparity')['disp_occ'].baseline:.4f}"
+          f" m; RAFT fp32 padded to {padded}: EPE over flow_occ's valid "
+          f"pixels {[round(e, 4) for e in card]}, ms a pair on the card "
+          f"(host clock, synchronised) {[round(v, 1) for v in ms]}; first "
+          f"{KITTI_SFLOW_CPU} on the CPU {[round(e, 4) for e in cpu]}, "
+          f"relative {rel:.2e} (gate 1e-3)")
+    if rel > 1e-3:
+        raise AssertionError(f"KITTI scene flow EPE card {card} vs CPU {cpu}")
+    return dict(epe=card, cpu_epe=cpu, rel=rel, ms=ms, read_ms=read_ms,
+                padded_hw=list(padded))
+
+
+def kitti_object_step(device):
+    """``KittiObject`` (100 frames, 30 ``label_2`` objects of the 8 classes
+    and 2 DontCare a frame, P2) -> its ``BoundingBoxes3D`` as targets, 100
+    seeded predictions a frame (jittered copies of the targets, a tenth of
+    another class, three tenths moved off), into ``ApMetrics3D`` on the
+    card and on the CPU: equal maps; ms per ``add_sample``, beside the same
+    metric's on ``ap3d_samples``' synthetic boxes in this run."""
+    import aloception_tpu_torch.aloscene as sc
+    from aloception_tpu_torch.alodataset import KittiObject
+    from aloception_tpu_torch.metrics import ApMetrics3D
+    ds = KittiObject()
+    t = time.perf_counter()
+    frames = [ds[i] for i in range(len(ds))]
+    read_ms = (time.perf_counter() - t) / len(frames) * 1e3
+    g = torch.Generator().manual_seed(140)
+    samples, n_cls = [], len(ds.CLASSES)
+    for f in frames:
+        gt = f.boxes3d
+        if gt.shape != (KITTI_OBJECT_BOXES, 7) or f.HW != KITTI_HW or \
+                f.get_child("cam_intrinsic") is None:
+            raise AssertionError(f"a KITTI object frame: {gt.shape}, {f.HW}")
+        cls = gt.labels.array.long()
+        src = torch.randint(0, len(gt), (KITTI_OBJECT_PRED,), generator=g)
+        pred = gt.array[src] + torch.randn(KITTI_OBJECT_PRED, 7, generator=g) \
+            * torch.tensor([0.4, 0.1, 0.4, 0.1, 0.1, 0.2, 0.2])
+        off = torch.rand(KITTI_OBJECT_PRED, generator=g) < 0.3
+        pred[off, 0] += 12 * (torch.rand(int(off.sum()), generator=g) - 0.5)
+        flip = torch.rand(KITTI_OBJECT_PRED, generator=g) < 0.1
+        p_cls = torch.where(flip, (cls[src] + 1) % n_cls, cls[src]).float()
+        samples.append((sc.BoundingBoxes3D(pred, labels=sc.Labels(
+            p_cls, labels_names=ds.CLASSES,
+            scores=torch.rand(KITTI_OBJECT_PRED, generator=g))), gt))
+    maps, ms = {}, {}
+    synthetic = ap3d_samples(device)
+    for where in ("cpu", device, "synthetic"):
+        moved = synthetic if where == "synthetic" else \
+            [(p.to(where), t.to(where)) for p, t in samples]
+        m = ApMetrics3D()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p, t in moved:
+            m.add_sample(p, t)
+        ms[str(where)] = (time.perf_counter() - t0) / len(moved) * 1e3
+        maps[str(where)] = m.calc_map()
+    card, cpu = maps[str(device)], maps["cpu"]
+    print(f"KITTI object from files: {len(frames)} frames {KITTI_HW} (read "
+          f"{read_ms:.1f} ms a frame), {KITTI_OBJECT_PRED} predictions x "
+          f"{KITTI_OBJECT_BOXES} targets of {n_cls} classes: ApMetrics3D "
+          f"card {card['all']} == CPU {cpu['all']}: {card == cpu}; ms per "
+          f"add_sample card {ms[str(device)]:.3f} (on ap3d_samples' "
+          f"synthetic boxes {ms['synthetic']:.3f}), CPU {ms['cpu']:.3f}")
+    if card != cpu:
+        raise AssertionError(f"ApMetrics3D card {card} != CPU {cpu}")
+    return dict(map=card["all"], add_sample_ms=ms[str(device)],
+                add_sample_ms_synthetic=ms["synthetic"],
+                add_sample_ms_cpu=ms["cpu"], read_ms=read_ms)
+
+
+def kitti_depth_step(device):
+    """``KittiDepth`` (2 drives x 2 frames of sparse 16-bit depth / 256)
+    -> ``DepthMetrics`` over its lidar pixels (a seeded prediction of 0.7-
+    1.4 x the depth), card against CPU (1e-9 relative)."""
+    from aloception_tpu_torch.alodataset import KittiDepth
+    from aloception_tpu_torch.metrics import DepthMetrics
+    ds = KittiDepth()
+    depths = [ds[i].depth.array for i in range(len(ds))]
+    g = torch.Generator().manual_seed(150)
+    pairs = [(d * (0.7 + 0.7 * torch.rand(d.shape, generator=g)), d,
+              (d[0] != 0).float()) for d in depths]
+    keys = {}
+    for where in ("cpu", device):
+        m = DepthMetrics()
+        for p, t, valid in pairs:
+            m.add_sample(p.to(where), t.to(where), valid.to(where))
+        keys[str(where)] = m.calc_map()
+    card, cpu = keys[str(device)], keys["cpu"]
+    rel = max(abs(card[k] - v) / abs(v) for k, v in cpu.items())
+    lidar = sum(float(v.mean()) for _, _, v in pairs) / len(pairs)
+    print(f"KITTI depth from files: {len(depths)} maps {KITTI_HW}, "
+          f"{lidar:.3f} of the pixels with a return; DepthMetrics card vs "
+          f"CPU max relative {rel:.2e} (gate 1e-9): {card}")
+    if card.keys() != cpu.keys() or rel > 1e-9 or len(depths) != \
+            KITTI_DEPTH_DRIVES * KITTI_DEPTH_FRAMES:
+        raise AssertionError(f"DepthMetrics card {card} vs CPU {cpu}")
+    return dict(max_rel_err=rel, keys=card, lidar_share=lidar)
+
+
+def waymo_projections(boxes, K, E, hw):
+    """The 8 vertices of each box (vehicle frame, aloception axes) in the
+    camera frame through ``E`` and projected by ``K``; the boxes'
+    ``get_vertices_3d_proj`` and ``get_enclosing_box_2d`` by ``K``."""
+    v = boxes.get_vertices_3d()
+    cam = v @ E.array[:3, :3].T + E.array[:3, 3]
+    k = K.array
+    z = cam[..., 2:].clamp(min=1e-6)
+    uv = cam[..., :2] / z * k[[0, 1], [0, 1]] + k[[0, 1], [2, 2]]
+    return dict(camera_vertices=cam, image_vertices=uv,
+                proj=boxes.get_vertices_3d_proj(K),
+                enclosing=boxes.get_enclosing_box_2d(K, hw).array)
+
+
+def waymo_step(device, records, prepared):
+    """A Waymo TFRecord (one segment, 10 frames of the front camera at
+    1280x1920, 30 laser boxes a frame of which 3 signs, 30 camera boxes, the
+    camera's calibration) -> ``WaymoDataset.prepare`` -> T=2 sequences with
+    2-D and 3-D boxes -> each frame's ``BoundingBoxes3D``,
+    ``CameraIntrinsic`` and ``CameraExtrinsic`` to the card -> the
+    projections of ``waymo_projections``, against the CPU's (1e-4 of
+    max(1, max|ref|))."""
+    from aloception_tpu_torch.alodataset import WaymoDataset
+    t = time.perf_counter()
+    segments = WaymoDataset.prepare(records, prepared)
+    prepare_s = time.perf_counter() - t
+    ds = WaymoDataset(labels=("gt_boxes_2d", "gt_boxes_3d"))
+    t = time.perf_counter()
+    items = [ds[i]["front"] for i in range(len(ds))]
+    read_ms = (time.perf_counter() - t) / len(items) * 1e3
+    errs, n_boxes, in_front = {}, 0, 0
+    for k, f in enumerate(items):
+        K, E = f.get_child("cam_intrinsic"), f.get_child("cam_extrinsic")
+        for step in range(2):
+            boxes = f.boxes3d[step]
+            want = waymo_projections(boxes, K[step], E[step], f.HW)
+            got = waymo_projections(boxes.to(device), K[step].to(device),
+                                    E[step].to(device), f.HW)
+            for name, ref in want.items():
+                if got[name].device != device:
+                    raise AssertionError(f"waymo {name} left the card")
+                err = float((got[name].cpu() - ref).abs().max()) / max(
+                    1.0, float(ref.abs().max()))
+                errs[name] = max(errs.get(name, 0.0), err)
+            n_boxes += len(boxes)
+            in_front += int((want["camera_vertices"][..., 2] > 0).all(-1)
+                            .sum())
+    worst = max(errs, key=errs.get)
+    print(f"Waymo from a TFRecord: prepare {prepare_s:.2f} s "
+          f"({len(segments)} segment, {WAYMO_FRAMES} frames), {len(items)} "
+          f"T=2 sequences {items[0].HW} (read {read_ms:.1f} ms a sequence), "
+          f"{n_boxes} 3-D boxes ({in_front} wholly in front of the camera); "
+          f"projections card vs CPU, worst {worst} {errs[worst]:.2e} of "
+          f"max(1, max|ref|) (gate 1e-4)")
+    if errs[worst] > 1e-4 or n_boxes != 2 * len(items) * (WAYMO_BOXES - 3):
+        raise AssertionError(f"waymo projections: {errs}, {n_boxes} boxes")
+    return dict(prepare_s=prepare_s, sequences=len(items), boxes=n_boxes,
+                in_front=in_front, read_ms=read_ms, max_rel_err=errs)
+
+
+def kitti_waymo_disk_phase(device):
+    """KITTI scene flow 2015, object and depth directories and a Waymo
+    TFRecord, written from seeds into a temporary root that the dataset
+    config names, read by the port's datasets into RAFT, ``ApMetrics3D``,
+    ``DepthMetrics`` and the 3-D projections on the card, each against the
+    CPU. Host readers and torch ops: both kernel counts stay 0."""
+    import tempfile
+    from aloception_tpu_torch.alodataset import base_dataset
+    from aloception_tpu_torch.utils import flow_fixture as ff
+    _reset_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        dirs = {
+            "kitti_sflow2015": ff.build_kitti_sflow_dir(
+                os.path.join(root, "sflow"), seed=2, n=KITTI_SFLOW_FRAMES,
+                hw=KITTI_HW, gaps=False),
+            "kitti_object": ff.build_kitti_object_dir(
+                os.path.join(root, "object"), seed=3, n=KITTI_OBJECT_FRAMES,
+                hw=KITTI_HW, boxes=KITTI_OBJECT_BOXES, gaps=False),
+            "kitti_depth": ff.build_kitti_depth_dir(
+                os.path.join(root, "depth"), seed=4,
+                drives=KITTI_DEPTH_DRIVES, frames=KITTI_DEPTH_FRAMES,
+                hw=KITTI_HW, gaps=False),
+            "waymo": os.path.join(root, "waymo")}
+        records = ff.build_waymo_tfrecord_dir(
+            os.path.join(root, "records"), seed=5, frames=WAYMO_FRAMES,
+            hw=WAYMO_HW, boxes=WAYMO_BOXES)
+        out = {"write_s": time.perf_counter() - t0}
+        config = os.path.join(root, "alodataset_config.json")
+        with open(config, "w") as f:
+            json.dump(dirs, f)
+        with mock.patch.object(base_dataset, "CONFIG_PATH", config):
+            out["scene_flow"] = kitti_sflow_step(device)
+            out["object"] = kitti_object_step(device)
+            out["depth"] = kitti_depth_step(device)
+            out["waymo"] = waymo_step(device, records,
+                                      os.path.join(dirs["waymo"], "train"))
+    out["kernel_launches"] = _kernel_counts("KITTI and Waymo")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"kitti_waymo_disk phase: {out['seconds']:.1f} s (writing the "
+          f"directories {out['write_s']:.1f} s), hand-written kernel "
+          f"launches 0")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: "
@@ -4547,6 +5106,10 @@ def main():
     geometry = geometry_phase(device)
     torch.cuda.empty_cache()
     coco = coco_disk_phase(device)
+    torch.cuda.empty_cache()
+    flow_disk = flow_disk_phase(device)
+    torch.cuda.empty_cache()
+    kitti_waymo = kitti_waymo_disk_phase(device)
     ms_train = coco["train"]["launches"]
     coco_msda = {"multiscale_train": ms_train[0],
                  "multiscale_eval": coco["eval"]["msda_launches"],
@@ -4664,7 +5227,10 @@ def main():
         "geometry": geometry,
         # COCO on disk: the decode gate, multi-scale training and eval, the
         # FromDirectoryDataset request (the kernel entries carry launches)
-        "coco_disk": {k: v for k, v in coco.items() if k != "bucket_errs"}}))
+        "coco_disk": {k: v for k, v in coco.items() if k != "bucket_errs"},
+        # the flow, KITTI and Waymo datasets on disk: no kernel of the port
+        # (both counts read around each path and 0)
+        "flow_disk": flow_disk, "kitti_waymo_disk": kitti_waymo}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

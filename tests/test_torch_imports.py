@@ -103,6 +103,21 @@ def test_data_layer_modules_are_checked(module):
     assert (PKG / "runtime" / "aloloader.cpp").exists()
 
 
+@pytest.mark.parametrize("module", [
+    "alodataset/__init__.py", "alodataset/sintel.py",
+    "alodataset/flying_chairs2.py", "alodataset/flying_things.py",
+    "alodataset/kitti.py", "alodataset/utils/__init__.py",
+    "alodataset/utils/kitti.py", "alodataset/waymo.py",
+    "alodataset/prepare/__init__.py", "alodataset/prepare/waymo_converter.py",
+    "utils/flow_fixture.py", "commands/train_on_chairs.py",
+    "commands/eval_on_sintel.py"])
+def test_flow_kitti_waymo_modules_are_checked(module):
+    """The flow, KITTI and Waymo datasets' modules, the port's own copies of
+    the KITTI calibration parser and the Waymo converter, and the fixture
+    writer are among the sources checked below."""
+    assert PKG / module in SOURCES
+
+
 @pytest.mark.parametrize("child", ["points2d", "cam_intrinsic"])
 def test_rotate_carries_unrotatable_children_as_jax(child):
     """``Points2D`` and ``CameraIntrinsic`` cannot rotate (their

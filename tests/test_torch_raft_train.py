@@ -215,13 +215,38 @@ def test_data2raft_batch_matches_jax(dataset):
                                   jb["targets"]["valid"])
 
 
-def test_data2raft_refuses_what_is_not_ported():
+def test_data2raft_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """Every flow dataset is ported, as samples and on disk: the things and
+    sdhom samples give the JAX package's batches; without ``sample`` the
+    directory comes from the dataset config, and what is refused is a
+    dataset without one (FileNotFoundError, in both packages); with one,
+    the pairs read from disk give the JAX package's batches."""
+    import aloception_tpu.alodataset.base_dataset as jbase
+    import aloception_tpu_torch.alodataset.base_dataset as tbase
+    from aloception_tpu.train import Data2RAFT as JaxDM
     from aloception_tpu_torch.train import Data2RAFT
-    for dataset in ("things", "sdhom"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            Data2RAFT(sample=True, dataset=dataset)
-    with pytest.raises(NotImplementedError, match="A10"):
-        Data2RAFT(sample=False)
+    from aloception_tpu_torch.utils.flow_fixture import build_chairs2_dir
+    config = str(tmp_path / "alodataset_config.json")
+    monkeypatch.setattr(jbase, "CONFIG_PATH", config)
+    monkeypatch.setattr(tbase, "CONFIG_PATH", config)
+    cases = [dict(sample=True, dataset=d) for d in ("things", "sdhom")]
+    for dm in (JaxDM, Data2RAFT):
+        with pytest.raises(FileNotFoundError, match="FlyingChairs2"):
+            dm(sample=False)
+    build_chairs2_dir(str(tmp_path / "chairs"), seed=1, hw=(16, 24))
+    with open(config, "w") as f:
+        f.write('{"FlyingChairs2": "%s"}' % (tmp_path / "chairs"))
+    cases.append(dict(sample=False, dataset="chairs"))
+    for kw in cases:
+        jdm, tdm = JaxDM(**kw), Data2RAFT(**kw)
+        jb = jdm.prepare_batch([jdm.train_dataset.getitem(i) for i in (0, 1)])
+        tb = tdm.prepare_batch([tdm.train_dataset[i] for i in (0, 1)])
+        for g, w in zip(tb["inputs"], jb["inputs"]):
+            np.testing.assert_array_equal(nhwc(g), w)
+        np.testing.assert_array_equal(nhwc(tb["targets"]["flow"]),
+                                      jb["targets"]["flow"])
+        np.testing.assert_array_equal(tb["targets"]["valid"].numpy(),
+                                      jb["targets"]["valid"])
 
 
 def tiny_raft(seed=0):

@@ -70,13 +70,32 @@ def test_raft_train_then_eval_from_checkpoint(tmp_path, capsys):
                                    ["--steps_per_dispatch", "4"],
                                    ["--log", "tensorboard", "--multihost"],
                                    []])
-def test_train_on_chairs_refuses_what_is_not_ported(flags, tmp_path):
+def test_train_on_chairs_refuses_what_is_not_ported(flags, tmp_path,
+                                                    monkeypatch):
     """Flags of later ROADMAP items, beside ported ones too (``--log``),
-    and FlyingChairs2 on disk (no --sample), raise."""
-    sample = [] if not flags else ["--sample"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_on_chairs.main(["--cpu", "--tiny", *sample, *flags,
-                              "--log_dir", str(tmp_path)])
+    raise. With no flag the command reads FlyingChairs2 from disk: it
+    refuses only a dataset directory that the config does not name
+    (FileNotFoundError), and trains on the one it names."""
+    if flags:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train_on_chairs.main(["--cpu", "--tiny", "--sample", *flags,
+                                  "--log_dir", str(tmp_path)])
+        return
+    from aloception_tpu_torch.alodataset import base_dataset
+    from aloception_tpu_torch.utils.flow_fixture import build_chairs2_dir
+    config = tmp_path / "alodataset_config.json"
+    monkeypatch.setattr(base_dataset, "CONFIG_PATH", str(config))
+    argv = ["--cpu", "--tiny", "--max_steps", "1", "--iters", "1",
+            "--log_dir", str(tmp_path)]
+    with pytest.raises(FileNotFoundError, match="FlyingChairs2"):
+        train_on_chairs.main(argv)
+    build_chairs2_dir(str(tmp_path / "chairs"), seed=0, n_train=2, n_val=2,
+                      hw=(16, 24))
+    config.write_text('{"FlyingChairs2": "%s"}' % (tmp_path / "chairs"))
+    trainer = train_on_chairs.main(argv)
+    assert trainer.global_step == 1
+    assert trainer.data_module.train_dataset.dir_path == str(
+        tmp_path / "chairs" / "train")
 
 
 def event_scalars(ckpt_dir):
