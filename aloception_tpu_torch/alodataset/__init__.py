@@ -2,9 +2,10 @@
 the base dataset and its threaded loaders, the 26 transforms, COCO
 detection, COCO panoptic and LVIS, merge and from-directory datasets, the
 flow datasets (Sintel, FlyingChairs2, FlyingThings3D subset, ChairsSDHom),
-the KITTI family and Waymo with its TFRecord converter: on disk, and as
-offline synthetic samples. KITTI, Waymo, FlyingThings3D and ChairsSDHom
-load at their first use, as in the JAX package."""
+the KITTI family and Waymo with its TFRecord converter, MOT17, CrowdHuman
+and WoodScape: on disk, and as offline synthetic samples. KITTI, Waymo,
+FlyingThings3D, ChairsSDHom, MOT17, CrowdHuman and WoodScape load at their
+first use, as in the JAX package."""
 
 from .base_dataset import BaseDataset, Split  # noqa: F401
 from .mixins import SequenceMixin, SplitMixin  # noqa: F401
@@ -19,12 +20,17 @@ from .flying_chairs2 import FlyingChairs2Dataset  # noqa: F401
 from .sintel import (SintelBaseDataset, SintelDisparityDataset,  # noqa: F401
                      SintelFlowDataset, SintelMultiDataset)
 
-# JAX package datasets that wait in ROADMAP's first item of A
-NOT_PORTED = ("Mot17", "CrowdHumanDataset", "WooDScapeDataset",
-              "WooDScapeSplitDataset")
-
 
 def __getattr__(name):
+    if name == "Mot17":
+        from .mot17 import Mot17
+        return Mot17
+    if name == "CrowdHumanDataset":
+        from .crowd_human import CrowdHumanDataset
+        return CrowdHumanDataset
+    if name in ("WooDScapeDataset", "WooDScapeSplitDataset"):
+        from . import woodscape
+        return getattr(woodscape, name)
     if name == "WaymoDataset":
         from .waymo import WaymoDataset
         return WaymoDataset
@@ -34,6 +40,4 @@ def __getattr__(name):
     if name in ("FlyingThings3DSubsetDataset", "ChairsSDHomDataset"):
         from . import flying_things
         return getattr(flying_things, name)
-    if name in NOT_PORTED:
-        raise AttributeError(f"{name} is not ported yet (ROADMAP A)")
     raise AttributeError(name)

@@ -115,6 +115,11 @@ class BaseDataset:
     def getitem(self, idx: int):
         raise NotImplementedError
 
+    def _getitem(self, idx: int, epoch: int):
+        """The sample ``get`` reads; a dataset whose sample draws from
+        (``transform_seed``, epoch, index) overrides this one."""
+        return self.getitem(idx)
+
     def __getitem__(self, idx: int):
         return self.get(idx)
 
@@ -124,7 +129,7 @@ class BaseDataset:
         total, asked = len(self), idx
         for attempt in range(self.max_retry_on_error + 1):
             try:
-                data = self.getitem(idx)
+                data = self._getitem(idx, epoch)
                 break
             except InvalidSampleError:
                 if attempt == self.max_retry_on_error:

@@ -1,6 +1,6 @@
 """aloscene (PyTorch): augmented tensors, labeled data structures that
-transform together (counterpart of ``aloception_tpu/aloscene``, without the
-renderer and the views)."""
+transform together, their views and the renderer (counterpart of
+``aloception_tpu/aloscene``)."""
 
 from .augmented import AugmentedArray
 from .spatial import SpatialAugmentedArray
@@ -17,6 +17,7 @@ from .depth import Depth
 from .disparity import Disparity
 from .frame import Frame
 from .io.errors import InvalidSampleError
+from .renderer import Renderer, View, render, render_save
 
 batch_list = SpatialAugmentedArray.batch_list
 temporal_list = SpatialAugmentedArray.temporal_list
@@ -25,4 +26,5 @@ __all__ = ["AugmentedArray", "SpatialAugmentedArray", "Labels",
            "BoundingBoxes2D", "BoundingBoxes3D", "OrientedBoxes2D",
            "CameraIntrinsic", "CameraExtrinsic", "Pose", "Points2D",
            "Points3D", "Mask", "Flow", "SceneFlow", "Depth", "Disparity",
-           "Frame", "InvalidSampleError", "batch_list", "temporal_list"]
+           "Frame", "InvalidSampleError", "batch_list", "temporal_list",
+           "Renderer", "View", "render", "render_save"]

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..ops import boxes as box_ops
@@ -42,6 +43,55 @@ class BoundingBoxes2D(AugmentedArray):
 
     def append_labels(self, labels: Labels, name: Optional[str] = None):
         self._append_child("labels", labels, name)
+
+    # colour of a label id (id % 300) in the boxes' views
+    _GLOBAL_COLOR_SET = np.random.RandomState(7).uniform(0, 1, (300, 3))
+
+    def __get_view__(self, frame=None, frame_size=None, title=None,
+                     labels_set=None, **kwargs):
+        """Boxes drawn onto ``frame`` (a float [0, 1] HWC image; black of
+        ``frame_size``, the boxes' own or 300x300 without one), computed on
+        the host (bounding_boxes_2d.py:428 get_view): box by box, the label
+        name (or id) and score, then a 2-pixel rectangle in the label's
+        colour (green without labels)."""
+        from .renderer import View, put_adaptive_cv2_text
+        from .renderer.draw import rectangle
+        host = self.cpu()
+        if frame is None:
+            if frame_size is None and not host.absolute:
+                frame_size = (300, 300)
+            fs = frame_size or host.frame_size
+            frame = np.zeros((int(fs[0]), int(fs[1]), 3), np.float32)
+        fs = (frame.shape[0], frame.shape[1])
+        boxes = host.abs_pos(fs).xyxy()
+        arr = boxes.as_numpy().reshape(-1, 4)
+        labels = boxes.get_child("labels")
+        if isinstance(labels, dict):
+            labels = labels.get(labels_set) if labels_set else \
+                next(iter(labels.values()))
+        lab = labels.as_numpy().astype(int) if labels is not None else None
+        scores = labels.scores if labels is not None else None
+        if scores is not None:
+            scores = scores.numpy()
+        img = (np.clip(np.ascontiguousarray(frame), 0, 1) * 255
+               ).astype(np.uint8)
+        for i, (x1, y1, x2, y2) in enumerate(arr):
+            if lab is not None and i < len(lab):
+                color = tuple(int(255 * c) for c in
+                              self._GLOBAL_COLOR_SET[lab[i] % 300])
+                names = labels.labels_names
+                text = names[lab[i]] if names and lab[i] < len(names) \
+                    else str(lab[i])
+                if scores is not None:
+                    text += f" {float(scores[i]):.2f}"
+                put_adaptive_cv2_text(img, text, x1, max(y1 - 3, 10), color)
+            else:
+                color = (0, 255, 0)
+            rectangle(img, (int(x1), int(y1)), (int(x2), int(y2)), color, 2)
+        return View(img.astype(np.float32) / 255.0, title=title)
+
+    def get_view(self, frame=None, **kwargs):
+        return self.__get_view__(frame=frame, **kwargs)
 
     # ------------------------------------------------------------------
     # format conversions

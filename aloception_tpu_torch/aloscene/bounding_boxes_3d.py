@@ -1,6 +1,5 @@
 """BoundingBoxes3D: N x 7 camera-coordinate boxes [xc, yc, zc, Dx, Dy, Dz,
-heading] (counterpart of ``aloception_tpu/aloscene/bounding_boxes_3d.py``,
-without the view).
+heading] (counterpart of ``aloception_tpu/aloscene/bounding_boxes_3d.py``).
 
 Vertices, their image projection (through a ``CameraIntrinsic``), enclosing
 2D boxes and the pairwise 3D IoU/GIoU through ``ops/rotated_iou.py``, all on
@@ -13,6 +12,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..ops import rotated_iou as riou
@@ -100,6 +100,74 @@ class BoundingBoxes3D(AugmentedArray):
         """Pairwise 3D GIoU (N, M)."""
         return riou.pairwise(riou.cal_giou_3d, _to_riou_layout(self),
                              _to_riou_layout(boxes2))[0]
+
+    _EDGES = ((0, 1), (1, 3), (3, 2), (2, 0),      # front face
+              (4, 5), (5, 7), (7, 6), (6, 4),      # back face
+              (0, 4), (1, 5), (2, 6), (3, 7))      # connectors
+
+    def _view_projection(self, intrinsic) -> np.ndarray:
+        """(N, 8, 2) projected vertices for the view, in float64 on the
+        host with the JAX view's arithmetic (float32 payload, float64
+        rotation and projection), each item with its intrinsic
+        (``per_item``)."""
+        b = self.as_numpy().reshape(-1, 7)
+        dx, dy, dz = b[:, 3], b[:, 4], b[:, 5]
+        sx, sy, sz = (np.array(s) * 0.5 for s in _SIGNS)
+        corners = np.stack([sx[None] * dx[:, None], sy[None] * dy[:, None],
+                            sz[None] * dz[:, None]], axis=-1)
+        cos, sin = np.cos(b[:, 6]), np.sin(b[:, 6])
+        rot = np.zeros((len(b), 3, 3))
+        rot[:, 0, 0] = cos
+        rot[:, 0, 2] = sin
+        rot[:, 1, 1] = 1
+        rot[:, 2, 0] = -sin
+        rot[:, 2, 2] = cos
+        v = np.einsum("nij,nkj->nki", rot, corners) + b[:, None, :3]
+        K = per_item(intrinsic, self.shape[:-2]).numpy()
+        if K.ndim > 2:
+            K = np.repeat(K.reshape((-1,) + K.shape[-2:]), self.shape[-2],
+                          0)[:, None]
+        fx, fy, cx, cy = K[..., 0, 0], K[..., 1, 1], K[..., 0, 2], \
+            K[..., 1, 2]
+        z = np.maximum(v[..., 2], 1e-6)
+        return np.stack([v[..., 0] / z * fx + cx, v[..., 1] / z * fy + cy],
+                        axis=-1)
+
+    def __get_view__(self, frame=None, cam_intrinsic=None, frame_size=None,
+                     title=None, **kwargs):
+        """Wireframes of the boxes projected onto ``frame`` (a float [0, 1]
+        HWC image, or black of ``frame_size``, 300x300 without one),
+        computed on the host (bounding_boxes_3d.py:472): the 12 edges of
+        each box as 2-pixel lines in its label's colour (its index's
+        without labels). None without an intrinsic (``cam_intrinsic`` or
+        the boxes' own)."""
+        from .renderer import View
+        from .renderer.draw import line
+        host = self.cpu()
+        intrinsic = cam_intrinsic if cam_intrinsic is not None \
+            else host.get_child("cam_intrinsic")
+        if intrinsic is None or isinstance(intrinsic, dict):
+            return None
+        if frame is None:
+            fs = frame_size or (300, 300)
+            frame = np.zeros((int(fs[0]), int(fs[1]), 3), np.float32)
+        img = (np.clip(np.ascontiguousarray(frame), 0, 1) * 255
+               ).astype(np.uint8)
+        proj = host._view_projection(intrinsic.cpu())
+        colors = np.random.RandomState(11).uniform(0, 255, (300, 3))
+        labels = host.get_child("labels")
+        lab = labels.as_numpy().astype(int) \
+            if labels is not None and not isinstance(labels, dict) else None
+        for n in range(proj.shape[0]):
+            color = tuple(int(c) for c in
+                          colors[(lab[n] if lab is not None else n) % 300])
+            for a, b in self._EDGES:
+                line(img, tuple(int(v) for v in proj[n, a]),
+                     tuple(int(v) for v in proj[n, b]), color, 2)
+        return View(img.astype(np.float32) / 255.0, title=title)
+
+    def get_view(self, frame=None, **kwargs):
+        return self.__get_view__(frame=frame, **kwargs)
 
     def _hflip(self, cam_extrinsic=None, **kw):
         """Mirror across the camera's x axis. With ``cam_extrinsic``

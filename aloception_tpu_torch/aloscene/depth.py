@@ -1,5 +1,5 @@
 """Depth maps with their scale state (counterpart of
-``aloception_tpu/aloscene/depth.py``, without the view).
+``aloception_tpu/aloscene/depth.py``).
 
 State: ``is_absolute`` (with the scale/shift of the inverse encoding) and
 ``is_planar`` (planar Z vs euclidean ray length). Conversions run on the
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .camera_calib import per_item
@@ -41,6 +42,26 @@ class Depth(SpatialAugmentedArray):
 
     def append_occlusion(self, occlusion: Mask, name: Optional[str] = None):
         self._append_child("occlusion", occlusion, name)
+
+    def __get_view__(self, title=None, min_depth=None, max_depth=None,
+                     cmap="nipy_spectral", reverse: bool = True, **kwargs):
+        """The colour-mapped depth of the first item (depth.py:183), from
+        ``min_depth`` (the least value) to ``max_depth`` (the largest),
+        reversed by default; infinities count as 0. Computed on the
+        host."""
+        from .renderer import View
+        from .renderer.colormap import apply_colormap
+        arr = np.asarray(self.cpu().as_numpy(), np.float64)
+        while arr.ndim > 2:
+            arr = arr[0]
+        arr = np.nan_to_num(arr, posinf=0, neginf=0)
+        lo = min_depth if min_depth is not None else arr.min()
+        hi = max_depth if max_depth is not None else max(arr.max(), lo + 1e-6)
+        norm = np.clip((arr - lo) / (hi - lo), 0, 1)
+        if reverse:
+            norm = 1 - norm
+        return View(apply_colormap(norm, cmap).astype(np.float32),
+                    title=title)
 
     # ------------------------------------------------------------------
     def _with_state(self, array, **state) -> "Depth":

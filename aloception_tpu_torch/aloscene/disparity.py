@@ -1,10 +1,11 @@
 """Disparity maps, signed or unsigned, with depth conversion (counterpart of
-``aloception_tpu/aloscene/disparity.py``, without the view)."""
+``aloception_tpu/aloscene/disparity.py``)."""
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .camera_calib import per_item
@@ -39,6 +40,22 @@ class Disparity(SpatialAugmentedArray):
 
     def append_occlusion(self, occlusion: Mask, name: Optional[str] = None):
         self._append_child("occlusion", occlusion, name)
+
+    def __get_view__(self, title=None, min_disp=None, max_disp=None,
+                     cmap="nipy_spectral", **kwargs):
+        """The colour-mapped |disparity| of the first item, from
+        ``min_disp`` (the least value) to ``max_disp`` (the largest).
+        Computed on the host."""
+        from .renderer import View
+        from .renderer.colormap import apply_colormap
+        arr = np.abs(self.cpu().as_numpy())
+        while arr.ndim > 2:
+            arr = arr[0]
+        lo = min_disp if min_disp is not None else arr.min()
+        hi = max_disp if max_disp is not None else max(arr.max(), lo + 1e-6)
+        norm = np.clip((arr - lo) / (hi - lo), 0, 1)
+        return View(apply_colormap(norm, cmap).astype(np.float32),
+                    title=title)
 
     def _resize(self, size01, **kwargs):
         W0 = self.W

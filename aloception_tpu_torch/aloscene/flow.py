@@ -1,11 +1,12 @@
 """Flow and SceneFlow maps (counterpart of ``aloception_tpu/aloscene/
-flow.py``, without the view; ``utils/flow_utils.py::flow_to_color`` holds
-its colours)."""
+flow.py``; ``utils/flow_utils.py::flow_to_color`` holds its view's
+colours)."""
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .augmented import const
@@ -32,6 +33,20 @@ class Flow(SpatialAugmentedArray):
 
     def append_occlusion(self, occlusion: Mask, name: Optional[str] = None):
         self._append_child("occlusion", occlusion, name)
+
+    def __get_view__(self, title=None, clip_flow=None, magnitude_max=None,
+                     **kwargs):
+        """The flow-wheel colours of the first item (flow.py:46), computed
+        on the host."""
+        from .renderer import View
+        from .utils.flow_utils import flow_to_color
+        arr = self.cpu().as_numpy()
+        while arr.ndim > 3:
+            arr = arr[0]
+        f = np.moveaxis(arr, self.dim_idx("C") if arr.ndim == 3 else 0, -1)
+        rgb = flow_to_color(torch.from_numpy(np.ascontiguousarray(
+            f[..., :2])), clip_flow, magnitude_max=magnitude_max)
+        return View((rgb / 255.0).numpy(), title=title)
 
     def _scale_components(self, out: "Flow", sx: float, sy: float) -> "Flow":
         """``out`` with its x values times ``sx`` and y values times ``sy``,

@@ -168,6 +168,14 @@ class Frame(SpatialAugmentedArray):
                                       name=target.normalization)
         raise ValueError(f"cannot match normalization {target.normalization}")
 
+    def __get_view__(self, title=None, **kwargs):
+        """(frame.py:550) the norm01 HWC image of the first item, computed
+        on the host."""
+        from .renderer import View
+        from .spatial import _hwc_first
+        f = self.cpu().norm01()
+        return View(_hwc_first(f, f.as_numpy()), title=title)
+
     def as_image(self, dtype: torch.dtype = torch.uint8) -> torch.Tensor:
         """(..., H, W, C) image in the 0-255 range, cast to ``dtype``."""
         f = self.norm255()

@@ -1,5 +1,5 @@
 """Spatial augmented arrays: base for every (..., H, W)-structured type
-(counterpart of ``aloception_tpu/aloscene/spatial.py``, without rendering).
+(counterpart of ``aloception_tpu/aloscene/spatial.py``).
 
 Camera-calibration child slots, stereo properties, H/W helpers, temporal/batch
 dim insertion, ``batch_list`` (pad to the batch's largest frame or a fixed
@@ -19,6 +19,14 @@ import torch.nn.functional as F
 
 from .augmented import AugmentedArray
 from .labels import Labels
+
+
+def resize_bilinear(a: torch.Tensor, size) -> torch.Tensor:
+    """An (N, C, H, W) float tensor resized to ``size`` (H, W) as the JAX
+    package's ``cv2.resize(INTER_LINEAR)`` of float data: bilinear with
+    half-pixel centres and no antialiasing."""
+    return F.interpolate(a, size=tuple(size), mode="bilinear",
+                         align_corners=False, antialias=False)
 
 
 class SpatialAugmentedArray(AugmentedArray):
@@ -217,8 +225,7 @@ class SpatialAugmentedArray(AugmentedArray):
         lead = a.shape[:-2]
         a = a.reshape(1, -1, self.H, self.W)
         if method == "bilinear":
-            out = F.interpolate(a, size=(h, w), mode="bilinear",
-                                align_corners=False, antialias=False)
+            out = resize_bilinear(a, (h, w))
         elif method == "nearest":
             out = F.interpolate(a, size=(h, w), mode="nearest")
         else:
@@ -320,11 +327,89 @@ class SpatialAugmentedArray(AugmentedArray):
                 if hasattr(c, "crop") else c)
         return out
 
+    # ------------------------------------------------------------------
+    # views (spatial_augmented_tensor.py:115-202 get_view)
+    # ------------------------------------------------------------------
+    def __get_view__(self, title=None, **kwargs):
+        """The payload as an HWC image (the first item of any leading
+        dims), fetched to the host."""
+        from .renderer import View
+        return View(_hwc_first(self, self.cpu().as_numpy()), title=title)
+
+    def get_view(self, views: Optional[list] = None, exclude=None, size=None,
+                 title=None, **kwargs):
+        """The frame's view with every renderable child drawn on it, in the
+        order of the children: each child's ``__get_view__`` gets the image
+        drawn so far (``frame``), ``frame_size`` and the frame's unnamed
+        ``cam_intrinsic``, those of the three its signature takes, and its
+        view replaces the image; "mask", the calibrations and ``exclude``
+        are skipped; ``size`` (H, W) resizes every view; ``views`` are
+        added to the right. The object and its children are fetched to the
+        host once; a child's error rises (the JAX view drops a child whose
+        view raises TypeError)."""
+        from .renderer import View, resize_view
+        host = self.cpu()
+        views = list(views) if views else []
+        exclude = exclude or []
+        frame_img = host.__get_view__(title=title, **kwargs).image.copy()
+        ci = host._children.get("cam_intrinsic")
+        offered = {"frame_size": host.HW,
+                   "cam_intrinsic": ci if not isinstance(ci, dict) else None}
+        for name, child in host._children.items():
+            if child is None or name in exclude or name in (
+                    "mask", "cam_intrinsic", "cam_extrinsic"):
+                continue
+
+            def _draw(c):
+                nonlocal frame_img
+                fn = getattr(c, "__get_view__", None)
+                if fn is None:
+                    return c
+                v = fn(**_accepted(fn, dict(offered, frame=frame_img)))
+                if v is not None:
+                    frame_img = v.image
+                return c
+            self.apply_on_child(child, _draw)
+        views.insert(0, View(frame_img, title=title))
+        if size is not None:
+            for v in views:
+                v.image = resize_view(v.image, size)
+        out = views[0]
+        for v in views[1:]:
+            out = out.add(v)
+        return out
+
+    def render(self, **kwargs):
+        self.get_view().render(**kwargs)
+
     # the boundary into model code
     def as_layout(self, names: Tuple[str, ...]) -> torch.Tensor:
         """The payload permuted to the given named layout (e.g.
         ("B","H","W","C")), as a view."""
         return self.array.permute([self.dim_idx(n) for n in names])
+
+
+def _hwc_first(arr: AugmentedArray, values: np.ndarray) -> np.ndarray:
+    """``values`` (the payload of ``arr``) transposed to (..., H, W[, C])
+    and cut to 3 dims by taking first items, as the JAX views take it."""
+    perm = [arr.dim_idx("H"), arr.dim_idx("W")]
+    if "C" in arr.names:
+        perm.append(arr.dim_idx("C"))
+    lead = [i for i in range(values.ndim) if i not in perm]
+    img = np.transpose(values, lead + perm)
+    while img.ndim > 3:
+        img = img[0]
+    return img
+
+
+def _accepted(fn, offered: dict) -> dict:
+    """The keywords of ``offered`` that ``fn``'s signature takes (all of
+    them where it has ``**kwargs``)."""
+    import inspect
+    params = inspect.signature(fn).parameters
+    if any(p.kind is p.VAR_KEYWORD for p in params.values()):
+        return offered
+    return {k: v for k, v in offered.items() if k in params}
 
 
 def rotation_matrix(center, angle: float) -> List[float]:

@@ -3,9 +3,10 @@
 alonet/detr/production/model_handler.py:23 torchserve ModelHandler):
 images -> batched inference on an exported package -> JSON boxes.
 
-Items are uint8 (H, W, 3) arrays or tensors, or ``Frame``s. Encoded image
-bytes are refused: the port has no image decoder (the JAX handler decodes
-them with OpenCV, which the port does not use).
+Items are encoded image bytes (JPEG, WebP, PNG, BMP: decoded by
+``runtime.decode_bytes`` to the RGB pixels ``cv2.imdecode`` and
+``COLOR_BGR2RGB`` give the JAX handler, EXIF orientation included), uint8
+(H, W, 3) arrays or tensors, or ``Frame``s.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ...aloscene import Frame
+from ...runtime import decode_bytes
 
 
 class ModelHandler:
@@ -50,15 +52,13 @@ class ModelHandler:
 
     def preprocess(self, batch: List[Any]) -> Dict[str, torch.Tensor]:
         """Images -> resnet-normalised NHWC batch and a zero padding mask on
-        the package's device (model_handler.py preprocess)."""
+        the package's device (model_handler.py preprocess); encoded bytes
+        are decoded on the host first."""
         h, w = self.input_size
         images = []
         for item in batch:
             if isinstance(item, (bytes, bytearray)):
-                raise TypeError(
-                    "ModelHandler takes uint8 (H, W, 3) arrays or tensors and "
-                    "Frames; encoded image bytes need a decoder, which the "
-                    "PyTorch port does not have")
+                item = decode_bytes(item, "color")
             if isinstance(item, Frame):
                 frame = item.to(self.device)
             else:

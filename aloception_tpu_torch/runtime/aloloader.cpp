@@ -1,6 +1,8 @@
 // Native image code for aloception_tpu_torch: PNG and BMP decoded at their
-// native size, the bilinear resize + normalize of the batch loader into
-// caller-owned float buffers, and the polygon fill of COCO segmentations.
+// native size, from a file or from memory, the bilinear resize + normalize
+// of the batch loader into caller-owned float buffers, cv2's fixed-point
+// bilinear resize of uint8 images, the polygon fill of COCO segmentations
+// and the thick lines and rectangles of the views.
 //
 // Counterpart of aloception_tpu/runtime/aloloader.cpp (threaded decode +
 // resize + normalize), which links libjpeg and libpng. The machine that
@@ -33,8 +35,15 @@
 //   alo_resize_normalize(src, h, w, out, H, W, mode, mean, std): an RGB
 //     uint8 image to (H, W, 3) float32 as the JAX loader does: mode 0 = raw
 //     0..255, 1 = /255, 2 = resnet.
+//   alo_decode_buffer(buf, len, mode, ...): alo_decode of a PNG or BMP
+//     held in memory (cv2.imdecode).
 //   alo_fill_poly(mask, h, w, xy, n): cv2.fillPoly(mask, [xy], 1) with
 //     8-connected edges, integer vertices.
+//   alo_resize_linear_u8(src, h, w, c, dst, H, W): cv2.resize(src, (W, H),
+//     interpolation=INTER_LINEAR) of an (h, w, c) uint8 image.
+//   alo_line(img, h, w, c, x1, y1, x2, y2, color, thickness) and
+//   alo_rectangle(...): cv2.line and cv2.rectangle (LINE_8, thickness >= 2)
+//     on an (h, w, c) uint8 image.
 
 #include <zlib.h>
 
@@ -514,14 +523,18 @@ bool read_file(const char* path, std::vector<uint8_t>* out) {
   return ok;
 }
 
+Failure decode_buffer(const uint8_t* buf, size_t len, int mode, Image* img) {
+  if (len >= 8 && buf[0] == 137 && buf[1] == 'P')
+    return decode_png(buf, len, mode, img);
+  if (len >= 2 && buf[0] == 'B' && buf[1] == 'M')
+    return decode_bmp(buf, len, mode, img);
+  return {kUnknown, "not a PNG or BMP file"};
+}
+
 Failure decode_file(const char* path, int mode, Image* img) {
   std::vector<uint8_t> buf;
   if (!read_file(path, &buf)) return {kNoFile, "cannot read the file"};
-  if (buf.size() >= 8 && buf[0] == 137 && buf[1] == 'P')
-    return decode_png(buf.data(), buf.size(), mode, img);
-  if (buf.size() >= 2 && buf[0] == 'B' && buf[1] == 'M')
-    return decode_bmp(buf.data(), buf.size(), mode, img);
-  return {kUnknown, "not a PNG or BMP file"};
+  return decode_buffer(buf.data(), buf.size(), mode, img);
 }
 
 // --------------------------------------------------- resize + normalize ----
@@ -789,6 +802,269 @@ void fill_poly(uint8_t* img, int w, int h, const int* xy, int n) {
   }
 }
 
+// ------------------------------------------------- lines and rectangles ----
+// cv2.line and cv2.rectangle of OpenCV 5 with LINE_8 and a thickness of 2
+// or more, found equal to them on random segments inside, across and far
+// beyond the image border. A thick segment is a convex quadrilateral in
+// 16.16 fixed point (ThickLine -> FillConvexPoly, its edges drawn by the
+// fixed-point Line2) with a filled circle at the ends it caps; cv2.line
+// first clips the segment to the image grown by the thickness on every
+// side and caps both ends, a rectangle's closed polyline caps each side's
+// end and is not clipped.
+struct Canvas {
+  uint8_t* img;
+  int w, h, c;
+  const uint8_t* color;
+  void put(int64_t x, int64_t y) const {
+    if (x >= 0 && x < w && y >= 0 && y < h)
+      memcpy(img + (size_t(y) * w + x) * c, color, c);
+  }
+  void hline(int64_t y, int64_t x1, int64_t x2) const {
+    uint8_t* row = img + size_t(y) * w * c;
+    for (int64_t x = x1; x <= x2; ++x) memcpy(row + x * c, color, c);
+  }
+};
+
+void line2(const Canvas& cv, Pt p1, Pt p2) {
+  if (!clip_line(int64_t(cv.w) << XY_SHIFT, int64_t(cv.h) << XY_SHIFT, p1, p2))
+    return;
+  int64_t dx = p2.x - p1.x, dy = p2.y - p1.y;
+  int64_t j = dx < 0 ? -1 : 0, ax = (dx ^ j) - j;
+  int64_t i = dy < 0 ? -1 : 0, ay = (dy ^ i) - i;
+  int64_t x_step, y_step, ecount;
+  if (ax > ay) {
+    dy = (dy ^ j) - j;
+    if (j) std::swap(p1, p2);
+    x_step = XY_ONE;
+    y_step = dy * XY_ONE / (ax | 1);
+    ecount = (p2.x - p1.x) >> XY_SHIFT;
+  } else {
+    dx = (dx ^ i) - i;
+    if (i) std::swap(p1, p2);
+    x_step = dx * XY_ONE / (ay | 1);
+    y_step = XY_ONE;
+    ecount = (p2.y - p1.y) >> XY_SHIFT;
+  }
+  p1.x += XY_ONE >> 1;
+  p1.y += XY_ONE >> 1;
+  cv.put((p2.x + (XY_ONE >> 1)) >> XY_SHIFT, (p2.y + (XY_ONE >> 1)) >> XY_SHIFT);
+  if (ax > ay) {
+    int64_t x = p1.x >> XY_SHIFT, y = p1.y;
+    for (; ecount >= 0; --ecount, ++x, y += y_step) cv.put(x, y >> XY_SHIFT);
+  } else {
+    int64_t x = p1.x, y = p1.y >> XY_SHIFT;
+    for (; ecount >= 0; --ecount, x += x_step, ++y) cv.put(x >> XY_SHIFT, y);
+  }
+}
+
+// FillConvexPoly with vertices in 16.16 fixed point (shift = XY_SHIFT)
+void fill_convex(const Canvas& cv, const Pt* v, int npts) {
+  const int64_t delta = XY_ONE >> 1;
+  int64_t xmin = v[0].x, xmax = v[0].x, ymin = v[0].y, ymax = v[0].y;
+  int imin = 0;
+  Pt p0 = v[npts - 1];
+  for (int i = 0; i < npts; ++i) {
+    const Pt& p = v[i];
+    if (p.y < ymin) {
+      ymin = p.y;
+      imin = i;
+    }
+    ymax = std::max(ymax, p.y);
+    xmax = std::max(xmax, p.x);
+    xmin = std::min(xmin, p.x);
+    line2(cv, p0, p);
+    p0 = p;
+  }
+  xmin = (xmin + delta) >> XY_SHIFT;
+  xmax = (xmax + delta) >> XY_SHIFT;
+  ymin = (ymin + delta) >> XY_SHIFT;
+  ymax = (ymax + delta) >> XY_SHIFT;
+  if (npts < 3 || xmax < 0 || ymax < 0 || xmin >= cv.w || ymin >= cv.h) return;
+  ymax = std::min<int64_t>(ymax, cv.h - 1);
+  struct {
+    int idx, di;
+    int64_t x, dx, ye;
+  } edge[2];
+  edge[0].idx = edge[1].idx = imin;
+  edge[0].ye = edge[1].ye = ymin;
+  edge[0].di = 1;
+  edge[1].di = npts - 1;
+  edge[0].x = edge[1].x = -XY_ONE;
+  edge[0].dx = edge[1].dx = 0;
+  int edges = npts;
+  int64_t y = ymin;
+  do {
+    for (int i = 0; i < 2; ++i) {
+      if (y < edge[i].ye) continue;
+      int idx0 = edge[i].idx, di = edge[i].di;
+      int idx = idx0 + di;
+      if (idx >= npts) idx -= npts;
+      for (; edges-- > 0;) {
+        int64_t ty = (v[idx].y + delta) >> XY_SHIFT;
+        if (ty > y) {
+          int64_t xs = v[idx0].x, xe = v[idx].x;
+          edge[i].ye = ty;
+          edge[i].dx = ((xe - xs) * 2 + (ty - y)) / (2 * (ty - y));
+          edge[i].x = xs;
+          edge[i].idx = idx;
+          break;
+        }
+        idx0 = idx;
+        idx += di;
+        if (idx >= npts) idx -= npts;
+      }
+    }
+    if (edges < 0) break;
+    if (y >= 0) {
+      int left = edge[0].x > edge[1].x ? 1 : 0, right = 1 - left;
+      int64_t x1 = (edge[left].x + delta) >> XY_SHIFT;
+      int64_t x2 = (edge[right].x + delta) >> XY_SHIFT;
+      if (x2 >= 0 && x1 < cv.w) {
+        if (x1 < 0) x1 = 0;
+        if (x2 >= cv.w) x2 = cv.w - 1;
+        cv.hline(y, x1, x2);
+      }
+    }
+    edge[0].x += edge[0].dx;
+    edge[1].x += edge[1].dx;
+  } while (++y <= ymax);
+}
+
+// Circle with fill on
+void fill_circle(const Canvas& cv, int64_t cx, int64_t cy, int64_t radius) {
+  int64_t err = 0, dx = radius, dy = 0, plus = 1, minus = (radius << 1) - 1;
+  const int64_t W = cv.w, H = cv.h;
+  bool inside = cx >= radius && cx < W - radius && cy >= radius &&
+                cy < H - radius;
+  while (dx >= dy) {
+    int64_t y11 = cy - dy, y12 = cy + dy, y21 = cy - dx, y22 = cy + dx;
+    int64_t x11 = cx - dx, x12 = cx + dx, x21 = cx - dy, x22 = cx + dy;
+    if (inside) {
+      cv.hline(y11, x11, x12);
+      cv.hline(y12, x11, x12);
+      cv.hline(y21, x21, x22);
+      cv.hline(y22, x21, x22);
+    } else if (x11 < W && x12 >= 0 && y21 < H && y22 >= 0) {
+      x11 = std::max<int64_t>(x11, 0);
+      x12 = std::min<int64_t>(x12, W - 1);
+      if (y11 >= 0 && y11 < H) cv.hline(y11, x11, x12);
+      if (y12 >= 0 && y12 < H) cv.hline(y12, x11, x12);
+      if (x21 < W && x22 >= 0) {
+        x21 = std::max<int64_t>(x21, 0);
+        x22 = std::min<int64_t>(x22, W - 1);
+        if (y21 >= 0 && y21 < H) cv.hline(y21, x21, x22);
+        if (y22 >= 0 && y22 < H) cv.hline(y22, x21, x22);
+      }
+    }
+    dy++;
+    err += plus;
+    plus += 2;
+    int64_t mask = (err <= 0) - 1;
+    err -= minus & mask;
+    dx += mask;
+    minus -= mask & 2;
+  }
+}
+
+// ThickLine with integer ends (shift 0); flags: 1 caps p0, 2 caps p1
+void thick_line(const Canvas& cv, Pt p0, Pt p1, int thickness, int flags) {
+  p0.x <<= XY_SHIFT;
+  p0.y <<= XY_SHIFT;
+  p1.x <<= XY_SHIFT;
+  p1.y <<= XY_SHIFT;
+  double dx = (p0.x - p1.x) / double(XY_ONE), dy = (p1.y - p0.y) / double(XY_ONE);
+  double r = dx * dx + dy * dy;
+  int odd = thickness & 1;
+  int64_t th = int64_t(thickness) << (XY_SHIFT - 1);
+  if (fabs(r) > 2.220446049250313e-16) {
+    r = (th + odd * XY_ONE * 0.5) / sqrt(r);
+    int64_t dpx = llrint(dy * r), dpy = llrint(dx * r);
+    Pt pt[4] = {{p0.x + dpx, p0.y + dpy}, {p0.x - dpx, p0.y - dpy},
+                {p1.x - dpx, p1.y - dpy}, {p1.x + dpx, p1.y + dpy}};
+    fill_convex(cv, pt, 4);
+  }
+  for (int i = 0; i < 2; ++i) {
+    if (flags & (i + 1)) {
+      fill_circle(cv, (p0.x + (XY_ONE >> 1)) >> XY_SHIFT,
+                  (p0.y + (XY_ONE >> 1)) >> XY_SHIFT,
+                  (th + (XY_ONE >> 1)) >> XY_SHIFT);
+    }
+    p0 = p1;
+  }
+}
+
+// ------------------------------------------ cv2.resize INTER_LINEAR, uint8 ----
+// cv2's fixed-point bilinear of uint8 images (resizeGeneric_ with
+// HResizeLinear and VResizeLinear), found equal to cv2.resize on random
+// sizes up and down: 11-bit coefficients rounded from float32 fractions;
+// along x a source column left of 0 or at the last one or beyond takes
+// that border column alone; the horizontal pass sums into ints; along y
+// the fraction is not clamped, the two rows are clamped to the image, and
+// each output byte is VResizeLinearVec_32s8u's: both sums shifted right by
+// 4 and saturated to int16, multiplied keeping the high 16 bits, added,
+// then (s + 2) >> 2 saturated to uint8.
+const float kCoefScale = 2048.f;
+
+void linear_taps(int dsize, int ssize, bool clamp, std::vector<int>* ofs,
+                 std::vector<int>* coef) {
+  double scale = double(ssize) / dsize;
+  ofs->resize(dsize);
+  coef->resize(2 * size_t(dsize));
+  for (int d = 0; d < dsize; ++d) {
+    float f = float((d + 0.5) * scale - 0.5);
+    int s = int(floorf(f));
+    f -= s;
+    if (clamp && s < 0) {
+      f = 0;
+      s = 0;
+    }
+    if (clamp && s >= ssize - 1) {
+      f = 0;
+      s = ssize - 1;
+    }
+    (*ofs)[d] = s;
+    (*coef)[2 * d] = int(lrintf((1.f - f) * kCoefScale));
+    (*coef)[2 * d + 1] = int(lrintf(f * kCoefScale));
+  }
+}
+
+inline int sat16(int v) { return v < -32768 ? -32768 : v > 32767 ? 32767 : v; }
+
+void resize_linear_u8(const uint8_t* src, int h, int w, int c, uint8_t* dst,
+                      int oh, int ow) {
+  std::vector<int> xofs, yofs, alpha, beta;
+  linear_taps(ow, w, true, &xofs, &alpha);
+  linear_taps(oh, h, false, &yofs, &beta);
+  const int n = ow * c;
+  std::vector<int> rows(2 * size_t(n));
+  auto hpass = [&](int sy, int* out) {
+    const uint8_t* s = src + size_t(sy) * w * c;
+    for (int dx = 0; dx < ow; ++dx) {
+      int sx = xofs[dx];
+      int sx1 = sx + 1 < w ? sx + 1 : sx;
+      int a0 = alpha[2 * dx], a1 = alpha[2 * dx + 1];
+      for (int k = 0; k < c; ++k)
+        out[dx * c + k] = s[sx * c + k] * a0 + s[sx1 * c + k] * a1;
+    }
+  };
+  int* r0 = rows.data();
+  int* r1 = rows.data() + n;
+  for (int dy = 0; dy < oh; ++dy) {
+    int sy0 = std::min(std::max(yofs[dy], 0), h - 1);
+    int sy1 = std::min(std::max(yofs[dy] + 1, 0), h - 1);
+    hpass(sy0, r0);
+    hpass(sy1, r1);
+    int b0 = beta[2 * dy], b1 = beta[2 * dy + 1];
+    uint8_t* d = dst + size_t(dy) * n;
+    for (int x = 0; x < n; ++x) {
+      int v = int16_t(((sat16(r0[x] >> 4) * b0) >> 16) +
+                      ((sat16(r1[x] >> 4) * b1) >> 16));
+      v = (v + 2) >> 2;
+      d[x] = uint8_t(v < 0 ? 0 : v > 255 ? 255 : v);
+    }
+  }
+}
+
 void set_error(char* err, int errlen, const std::string& msg) {
   if (err && errlen > 0) {
     snprintf(err, size_t(errlen), "%s", msg.c_str());
@@ -836,6 +1112,61 @@ void alo_resize_normalize(const uint8_t* src, int h, int w, float* out,
 // an (h, w) uint8 mask.
 void alo_fill_poly(uint8_t* mask, int h, int w, const int* xy, int n) {
   fill_poly(mask, w, h, xy, n);
+}
+
+int alo_decode_buffer(const uint8_t* buf, size_t len, int mode, int* h, int* w,
+                      int* c, int* bytes_per_sample, void** data, char* err,
+                      int errlen) {
+  Image img;
+  Failure f = decode_buffer(buf, len, mode, &img);
+  *data = nullptr;
+  if (f.code != kOk) {
+    set_error(err, errlen, f.msg);
+    return f.code;
+  }
+  *h = img.h;
+  *w = img.w;
+  *c = img.c;
+  *bytes_per_sample = img.bytes;
+  void* out = malloc(img.data.size());
+  if (!out) {
+    set_error(err, errlen, "out of memory");
+    return kCorrupt;
+  }
+  memcpy(out, img.data.data(), img.data.size());
+  *data = out;
+  return kOk;
+}
+
+void alo_resize_linear_u8(const uint8_t* src, int h, int w, int c,
+                          uint8_t* dst, int oh, int ow) {
+  resize_linear_u8(src, h, w, c, dst, oh, ow);
+}
+
+void alo_line(uint8_t* img, int h, int w, int c, int64_t x1, int64_t y1,
+              int64_t x2, int64_t y2, const uint8_t* color, int thickness) {
+  Canvas cv{img, w, h, c, color};
+  Pt p1{x1 + thickness, y1 + thickness}, p2{x2 + thickness, y2 + thickness};
+  if (!clip_line(w + 2 * int64_t(thickness), h + 2 * int64_t(thickness), p1,
+                 p2))
+    return;
+  p1.x -= thickness;
+  p1.y -= thickness;
+  p2.x -= thickness;
+  p2.y -= thickness;
+  thick_line(cv, p1, p2, thickness, 3);
+}
+
+void alo_rectangle(uint8_t* img, int h, int w, int c, int64_t x1, int64_t y1,
+                   int64_t x2, int64_t y2, const uint8_t* color,
+                   int thickness) {
+  Canvas cv{img, w, h, c, color};
+  Pt pt[4] = {{x1, y1}, {x2, y1}, {x2, y2}, {x1, y2}};
+  Pt p0 = pt[3];
+  for (int i = 0; i < 4; ++i) {
+    thick_line(cv, p0, pt[i], thickness, 2);
+    p0 = pt[i];
+  }
 }
 
 }  // extern "C"

@@ -25,9 +25,13 @@ pool) run in parallel.
   that arrived, then libjpeg's fill; a CMYK JPEG through cv2's CMYK -> BGR;
   a colour image read as grey through the conversion cv2 applies to its
   format (``aloloader.cpp`` for PNG and BMP, ``_grey15_of_rgb`` for WebP).
+- ``decode_bytes(data, mode)``: the same for an encoded image held in
+  memory, as ``cv2.imdecode`` gives it (its EXIF orientation applied too).
 - ``NativeImageLoader``: threaded decode + bilinear resize + normalize of
   batches (the JAX loader's arithmetic), into one float32 NHWC tensor.
 - ``fill_poly``: ``cv2.fillPoly(mask, [xy], 1)`` on a uint8 mask.
+- ``resize_linear_u8``: ``cv2.resize(img, (W, H), INTER_LINEAR)`` of a
+  uint8 image, bit for bit (cv2's fixed-point path).
 """
 
 from __future__ import annotations
@@ -99,9 +103,22 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p]
+    lib.alo_decode_buffer.restype = ctypes.c_int
+    lib.alo_decode_buffer.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, _INT, _INT, _INT,
+        _INT, ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p, ctypes.c_int]
     lib.alo_fill_poly.restype = None
     lib.alo_fill_poly.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                   ctypes.c_void_p, ctypes.c_int]
+    lib.alo_resize_linear_u8.restype = None
+    lib.alo_resize_linear_u8.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    for fn in (lib.alo_line, lib.alo_rectangle):
+        fn.restype = None
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int] + [ctypes.c_int64] * 4 + [
+                           ctypes.c_void_p, ctypes.c_int]
     return lib
 
 
@@ -117,19 +134,22 @@ def _orient(img: torch.Tensor, orientation: int) -> torch.Tensor:
     return img.contiguous()
 
 
-def _format(path: str) -> str:
+def _format_of(head: bytes) -> str:
     """"JPEG", "WebP" or "native" (the rest: PNG, BMP, or refused by the
-    native decoder) by the file's first bytes."""
-    try:
-        with open(path, "rb") as f:
-            head = f.read(12)
-    except OSError:
-        return "native"           # the native decoder names the reason
+    native decoder) by an image's first bytes."""
     if head[:3] == b"\xff\xd8\xff":
         return "JPEG"
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
         return "WebP"
     return "native"
+
+
+def _format(path: str) -> str:
+    try:
+        with open(path, "rb") as f:
+            return _format_of(f.read(12))
+    except OSError:
+        return "native"           # the native decoder names the reason
 
 
 # what libjpeg's stdio source hands out, again and again, once a file has
@@ -165,19 +185,23 @@ def _grey14_of_rgb(rgb: np.ndarray) -> np.ndarray:
             ).astype(np.uint8)
 
 
-def _decode_pillow(path: str, mode: str, fmt: str) -> torch.Tensor:
+def _decode_pillow(path: str, mode: str, fmt: str, data: bytes = None
+                   ) -> torch.Tensor:
     """A JPEG (8-bit grey, YCbCr or CMYK) or WebP as ``cv2.imread`` gives
-    it. A JPEG's "gray" comes from libjpeg's own grey output, as cv2's does.
-    The JPEG's bytes reach Pillow followed by EOI markers, as libjpeg's
-    stdio source hands them out past the end of a file for cv2: a truncated
-    file then decodes to the same pixels, and a whole one stops at its own
-    EOI; Pillow's process-wide ``LOAD_TRUNCATED_IMAGES`` is left alone."""
+    it, read from ``path`` or, given, from ``data`` (``path`` then names it
+    in errors). A JPEG's "gray" comes from libjpeg's own grey output, as
+    cv2's does. The JPEG's bytes reach Pillow followed by EOI markers, as
+    libjpeg's stdio source hands them out past the end of a file for cv2: a
+    truncated file then decodes to the same pixels, and a whole one stops at
+    its own EOI; Pillow's process-wide ``LOAD_TRUNCATED_IMAGES`` is left
+    alone."""
     def refuse(why):
         return InvalidSampleError(f"image decoder: cannot read {path}: {why}")
     grey = mode in ("gray", "anydepth")
     try:
-        with open(path, "rb") as f:
-            data = f.read()
+        if data is None:
+            with open(path, "rb") as f:
+                data = f.read()
         if fmt == "JPEG":
             data += EOI_FILL
         with Image.open(io.BytesIO(data)) as im:
@@ -217,15 +241,35 @@ def decode(path: str, mode: str = "color") -> torch.Tensor:
     fmt = _format(path)
     if fmt != "native":
         return _decode_pillow(path, mode, fmt)
+    return _decode_native(
+        path, lambda lib, *out: lib.alo_decode(os.fsencode(path),
+                                               MODES[mode], *out))
+
+
+def decode_bytes(data: bytes, mode: str = "color") -> torch.Tensor:
+    """``decode`` of an encoded image held in memory, as ``cv2.imdecode``
+    gives it: cv2 applies a JPEG's EXIF orientation there as ``imread``
+    does, and so does this."""
+    data = bytes(data)
+    fmt = _format_of(data[:12])
+    if fmt != "native":
+        return _decode_pillow("<bytes>", mode, fmt, data)
+    return _decode_native(
+        "<bytes>", lambda lib, *out: lib.alo_decode_buffer(
+            data, len(data), MODES[mode], *out))
+
+
+def _decode_native(name: str, call) -> torch.Tensor:
+    """Run ``call(lib, h, w, c, nbytes, data, err, errlen)`` (an
+    ``alo_decode`` entry) and wrap what it hands out as a tensor."""
     lib = load_library()
     h, w, c, nbytes = (ctypes.c_int() for _ in range(4))
     data = ctypes.c_void_p()
     err = ctypes.create_string_buffer(256)
-    rc = lib.alo_decode(os.fsencode(path), MODES[mode], h, w, c, nbytes,
-                        ctypes.byref(data), err, len(err))
+    rc = call(lib, h, w, c, nbytes, ctypes.byref(data), err, len(err))
     if rc != 0:
         raise InvalidSampleError(
-            f"image decoder: cannot read {path}: {STATUS.get(rc, rc)}: "
+            f"image decoder: cannot read {name}: {STATUS.get(rc, rc)}: "
             f"{err.value.decode(errors='replace')}")
     try:
         n = h.value * w.value * c.value
@@ -250,6 +294,23 @@ def fill_poly(mask: np.ndarray, xy: np.ndarray) -> np.ndarray:
     load_library().alo_fill_poly(mask.ctypes.data, mask.shape[0],
                                  mask.shape[1], pts.ctypes.data, len(pts))
     return mask
+
+
+def resize_linear_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, (W, H), interpolation=cv2.INTER_LINEAR)`` of an
+    (h, w) or (h, w, c) uint8 image to ``size`` = (H, W), bit for bit: cv2's
+    fixed-point arithmetic for 8-bit images (``aloloader.cpp``)."""
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError("resize_linear_u8 needs an (h, w[, c]) uint8 image")
+    src = np.ascontiguousarray(img)
+    c = 1 if src.ndim == 2 else src.shape[2]
+    H, W = (int(v) for v in size)
+    if min(H, W, *src.shape) <= 0:
+        raise ValueError(f"cannot resize a {src.shape} image to {(H, W)}")
+    out = np.empty((H, W) + src.shape[2:], np.uint8)
+    load_library().alo_resize_linear_u8(src.ctypes.data, src.shape[0],
+                                        src.shape[1], c, out.ctypes.data, H, W)
+    return out
 
 
 class NativeImageLoader:

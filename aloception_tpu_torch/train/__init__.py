@@ -4,7 +4,8 @@ and the trainer factories of DETR, Deformable-DETR, the panoptic head and
 RAFT."""
 
 from .callbacks import (ApMetricsCallback, Callback,  # noqa: F401
-                        EPECallback, MetricsCallback, PQMetricsCallback)
+                        EPECallback, MetricsCallback, ObjectDetectorCallback,
+                        PQMetricsCallback)
 from .checkpoint import CheckpointManager  # noqa: F401
 from .data_modules import (CocoDetection2Detr, Data2RAFT,  # noqa: F401
                            pick_bucket)

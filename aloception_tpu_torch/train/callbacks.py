@@ -1,7 +1,7 @@
 """Training callbacks (counterpart of ``aloception_tpu/train/callbacks.py``):
-``MetricsCallback``, and the AP, PQ and EPE callbacks over the port's own
-``metrics``. ``ObjectDetectorCallback``, which needs the renderer, waits in
-ROADMAP A14.
+``MetricsCallback``, the AP, PQ and EPE callbacks over the port's own
+``metrics``, and ``ObjectDetectorCallback``, which logs the views of the
+first validation batch's predicted boxes.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from collections import defaultdict
 from typing import Dict, List
 
 import numpy as np
+import torch
 
 
 class Callback:
@@ -81,6 +82,36 @@ class ApMetricsCallback(Callback):
             {f"AP{k}": v for k, v in all_maps["all"].items()}, step,
             prefix="val/")
         self.ap = self._make()
+
+
+class ObjectDetectorCallback(Callback):
+    """The first validation batch's predicted boxes drawn on its frames
+    (norm01) and logged with ``log_image`` as ``val/pred_boxes_<b>``, once
+    a validation pass (object_detector_callback.py:42-196). The frames and
+    the predictions are fetched to the host and drawn there."""
+
+    def __init__(self, max_images: int = 4):
+        self.max_images = max_images
+        self._logged_this_epoch = False
+
+    def on_val_batch_end(self, trainer, outputs, batch, metrics):
+        if self._logged_this_epoch or trainer.inference_fn is None:
+            return
+        frames = batch.get("frames")
+        if frames is None:
+            return
+        p_boxes = trainer.inference_fn(outputs)
+        for b in range(min(self.max_images, len(p_boxes))):
+            frame = (frames[b] if frames.has_dim("B") else frames).cpu()
+            image = (frame.norm01().as_image(torch.float32) / 255
+                     ).clamp(0, 1).numpy()
+            view = p_boxes[b].get_view(frame=image, frame_size=frame.HW)
+            trainer.logger.log_image(f"val/pred_boxes_{b}", view.image,
+                                     trainer.global_step)
+        self._logged_this_epoch = True
+
+    def on_val_epoch_end(self, trainer, step):
+        self._logged_this_epoch = False
 
 
 class PQMetricsCallback(Callback):

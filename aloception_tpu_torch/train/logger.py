@@ -23,7 +23,7 @@ import socket
 import struct
 import time
 import zlib
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -239,6 +239,78 @@ class EventFileWriter:
     def close(self):
         if not self._file.closed:
             self._file.close()
+
+
+# ---------------------------------------------------------------- reading ----
+def _fields(buf: bytes):
+    """(field, wire type, value) of an encoded message; a varint's value is
+    an int, a length-delimited one bytes, a fixed one its raw bytes."""
+    i = 0
+    while i < len(buf):
+        key, i = _read_varint(buf, i)
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            value, i = _read_varint(buf, i)
+        elif wire == 1:
+            value, i = buf[i:i + 8], i + 8
+        elif wire == 2:
+            n, i = _read_varint(buf, i)
+            value, i = buf[i:i + n], i + n
+        elif wire == 5:
+            value, i = buf[i:i + 4], i + 4
+        else:
+            raise ValueError(f"unsupported wire type {wire}")
+        yield field, wire, value
+
+
+def _read_varint(buf: bytes, i: int):
+    shift = n = 0
+    while True:
+        b = buf[i]
+        i += 1
+        n |= (b & 0x7F) << shift
+        shift += 7
+        if not b & 0x80:
+            return n, i
+
+
+def read_events(path: str) -> List[Dict]:
+    """The summary values of an event file, in order: dicts of ``step``,
+    ``tag`` and ``simple_value`` (a float) or ``image`` (the decoded PNG,
+    (H, W, C) uint8); each record's CRCs are checked."""
+    from ..runtime import decode_bytes
+    with open(path, "rb") as f:
+        data = f.read()
+    out, i = [], 0
+    while i < len(data):
+        head = data[i:i + 8]
+        (n,) = struct.unpack("<Q", head)
+        if struct.unpack("<I", data[i + 8:i + 12])[0] != masked_crc32c(head):
+            raise ValueError(f"{path}: a record's length CRC does not match")
+        rec = data[i + 12:i + 12 + n]
+        if struct.unpack("<I", data[i + 12 + n:i + 16 + n])[0] \
+                != masked_crc32c(rec):
+            raise ValueError(f"{path}: a record's data CRC does not match")
+        i += 16 + n
+        step = 0
+        for field, _, value in _fields(rec):
+            if field == 2:
+                step = value
+            if field != 5:
+                continue
+            for _, _, v in _fields(value):            # Summary.value
+                item = {"step": step}
+                for vf, _, vv in _fields(v):
+                    if vf == 1:
+                        item["tag"] = vv.decode()
+                    elif vf == 2:
+                        item["simple_value"] = struct.unpack("<f", vv)[0]
+                    elif vf == 4:
+                        enc = dict((f, x) for f, _, x in _fields(vv))[4]
+                        item["image"] = decode_bytes(enc, "unchanged"
+                                                     ).numpy()
+                out.append(item)
+    return out
 
 
 class TensorBoardLogger(NoOpLogger):

@@ -150,7 +150,9 @@
     plans beside eager's; both latencies (p50/p99 to a synchronised end,
     device-busy ms); 4 requests of uint8 images of other sizes through
     ``ModelHandler`` on the same ``Executor`` (one fetch in postprocess,
-    12 launches each); the ``bf16`` profile's exported program against
+    12 launches each) and a request of JPEG bytes, decoded on the host,
+    whose boxes equal those of its pixels sent as an array; the ``bf16``
+    profile's exported program against
     its eager module; the RAFT (``iters`` 2) and panoptic exporters'
     programs at the CPU tests' tiny widths; int8 weights-only
     Deformable-DETR-R50 (every int8 weight within half a step; the logits'
@@ -218,6 +220,27 @@
     intrinsic and extrinsic on the card, the vertices in the camera frame,
     their projections and the enclosing 2-D boxes against the CPU's (1e-4
     of max(1, max|ref|)).
+22. MOT17, CrowdHuman and WoodScape on disk, the views and the renderer
+    (``tracking_views_disk_phase``): directories at the published sizes
+    written from seeds by ``utils/tracking_fixture.py``. CrowdHuman (12
+    train and 4 val JPEGs, half at 1600x2400) through ``prepare()`` (to the
+    800/1333 rule) into Deformable-DETR-R50-refine training (1 class,
+    float32, random weights) through a data module in the JAX tutorial
+    13's pattern and ``Trainer.fit``: 4 steps of 2 at the multi-scale
+    geometry, one validation pass of 2 batches with
+    ``ObjectDetectorCallback`` and the TensorBoard logger (72 MSDA forward
+    launches, 48 backward passes, 6 Hungarian launches; the losses finite;
+    the logged images read back from the event file equal the views drawn
+    on the CPU from the same predictions); MOT17 (an -FRCNN sequence of 8
+    frames at 1080x1920 and a -DPM one that ``detections_set`` drops)
+    through ``norm_resnet`` -> resize (800/1333) -> the trained detector
+    in eval mode -> ``inference`` (12 MSDA launches an item), a Renderer
+    grid of the ground-truth and predicted views over T saved and read
+    back; WoodScape (966x1280, one frame a camera, boxes and gtLabels)
+    through ``WooDScapeSplitDataset``; ``Frame.get_view`` of the frames on
+    the card, the boxes', masks' and the KITTI scene's 3-D boxes' views,
+    each equal to the CPU's; read, prepare, step, device-busy, view and
+    grid times beside the card's name and power limit.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
@@ -3350,7 +3373,10 @@ def export_requests(executor):
     """``ModelHandler`` on the loaded package: EXPORT_REQUEST_HW uint8
     images (one a request, the package's batch), each resized on the card
     to EXPORT_HW; JSON fields checked; one device-to-host fetch in
-    postprocess. Returns (MSDA launches, latency report, detections)."""
+    postprocess; then a request of JPEG bytes (decoded on the host) whose
+    boxes must equal those of its decoded pixels sent as a uint8 array.
+    Returns (MSDA launches, latency report, detections, the bytes
+    request's launches and detections)."""
     import json
     import numpy as np
     from aloception_tpu_torch.export.production import ModelHandler
@@ -3388,11 +3414,29 @@ def export_requests(executor):
         raise AssertionError(f"postprocess synchronised {len(fetches)} times")
     request_syncs = syncs_of(lambda: handler.handle([images[2]]))
     report = handler.executor.profiler.report()
+    import io
+    from PIL import Image
+    from aloception_tpu_torch.runtime import decode_bytes
+    buf = io.BytesIO()
+    Image.fromarray(images[3]).save(buf, "JPEG", quality=90)
+    ms_deform_attn_cuda.launches = 0
+    from_bytes = handler.handle([buf.getvalue()])
+    torch.cuda.synchronize()
+    bytes_launches = ms_deform_attn_cuda.launches
+    from_array = handler.handle([decode_bytes(buf.getvalue()).numpy()])
+    if from_bytes != from_array or bytes_launches != MSDA_CALLS_PER_FORWARD:
+        raise AssertionError(f"a JPEG-bytes request ({bytes_launches} MSDA "
+                             "launches) and its pixels as an array differ")
+    n_bytes = len(json.loads(from_bytes[0]))
+    print(f"  a request of {len(buf.getvalue())} JPEG bytes: {n_bytes} "
+          f"detections, equal to its decoded pixels sent as an array; "
+          f"{bytes_launches} MSDA launches")
     print(f"  {len(images)} handler requests: {n_dets} detections, MSDA "
           f"launches {launches}, package p50 {report['p50_ms']:.3f} ms; one "
           f"fetch in postprocess, {len(request_syncs)} synchronising "
           "operations a request (host-to-device copy of the image included)")
-    return launches, report, n_dets
+    return launches, report, n_dets, dict(msda_launches=bytes_launches,
+                                          detections=n_bytes)
 
 
 def export_phase(device):
@@ -3454,13 +3498,14 @@ def export_phase(device):
                              latency=latency_pair(executor, module,
                                                   (x, mask)))
         if name == "deformable":
-            launches, served, n_dets = export_requests(executor)
+            launches, served, n_dets, from_bytes = export_requests(executor)
             if launches != MSDA_CALLS_PER_FORWARD * len(EXPORT_REQUEST_HW):
                 raise AssertionError(f"{launches} MSDA launches in "
                                      f"{len(EXPORT_REQUEST_HW)} requests")
             results[name].update(requests=len(EXPORT_REQUEST_HW),
                                  request_msda_launches=launches,
-                                 served=served, detections=n_dets)
+                                 served=served, detections=n_dets,
+                                 bytes_request=from_bytes)
         del exporter, executor, eager, module
         torch.cuda.empty_cache()
 
@@ -5013,16 +5058,397 @@ def kitti_waymo_disk_phase(device):
     return out
 
 
+# ------------------------------------------------ tracking, crowds, views ----
+CROWD_TRAIN_HW = ((1600, 2400), (720, 1280)) * 6     # half above 1333
+CROWD_VAL_HW = ((1600, 2400), (720, 1280)) * 2
+CROWD_BATCH, CROWD_STEPS, CROWD_VAL_BATCHES = 2, 4, 2
+MOT_FRAMES, MOT_HW = 8, (1080, 1920)                  # MOT17-02's frames
+MOT_GRID_CELL = (540, 960)
+WOODSCAPE_HW = (966, 1280)
+VIEW_REPEATS = 3
+
+
+def _smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def crowd_human_module(batch_size, seed=0):
+    """A data module in the JAX tutorial 13's pattern: ``CocoDetection2Detr``
+    (its multi-scale transforms, buckets and ``prepare_batch``) over
+    ``CrowdHumanDataset``'s splits, one class, the directory the config
+    names."""
+    from aloception_tpu_torch.alodataset import CrowdHumanDataset, Split
+    from aloception_tpu_torch.train import CocoDetection2Detr
+
+    class CrowdHuman2Detr(CocoDetection2Detr):
+        def __init__(self, **kwargs):
+            super().__init__(sample=True, **kwargs)   # builds the transforms
+
+            def tfn(t):
+                return lambda frame, g: t.with_generator(g)(frame
+                                                            ).norm_resnet()
+            self.train_dataset = CrowdHumanDataset(
+                split=Split.TRAIN, transform_fn=tfn(self.train_transform),
+                transform_seed=self.seed)
+            self.val_dataset = CrowdHumanDataset(
+                split=Split.VAL, transform_fn=tfn(self.val_transform),
+                transform_seed=self.seed)
+            self.label_names = list(CrowdHumanDataset.CLASSES)
+
+    return CrowdHuman2Detr(batch_size=batch_size, seed=seed)
+
+
+def _timed_views(make, repeats=VIEW_REPEATS):
+    """(the view, ms a call) of ``make()``, which draws on the host."""
+    view = make()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        make()
+    return view, (time.perf_counter() - t0) / repeats * 1e3
+
+
+def _same_image(got, want, tag):
+    if got.shape != want.shape or not (got == want).all():
+        raise AssertionError(f"{tag}: the card's view differs from the "
+                             "CPU's")
+
+
+def crowd_human_train_step(device, root, smi):
+    """CrowdHuman -> ``prepare()`` -> Deformable-DETR-R50-refine (1 class,
+    float32, random weights) through ``Trainer.fit``, CROWD_STEPS steps of
+    CROWD_BATCH at the multi-scale geometry, then one validation pass of
+    CROWD_VAL_BATCHES batches with ``ObjectDetectorCallback`` and the
+    TensorBoard logger. The logged images read back from the event file
+    equal the views drawn on the CPU from the same predictions fetched
+    from the card."""
+    import math
+    import numpy as np
+    from torch.profiler import ProfilerActivity
+    from aloception_tpu_torch.alodataset import CrowdHumanDataset, Split
+    from aloception_tpu_torch.models.deformable_detr import (
+        deformable_detr_r50)
+    from aloception_tpu_torch.train import (MetricsCallback,
+                                            ObjectDetectorCallback,
+                                            make_deformable_detr_trainer)
+    from aloception_tpu_torch.train.logger import read_events
+    from aloception_tpu_torch.train.trainer import to_device
+
+    out = {}
+    splits = [CrowdHumanDataset(split=s) for s in (Split.TRAIN, Split.VAL)]
+    t = time.perf_counter()
+    prepared = [ds.prepare() for ds in splits][0]
+    out["prepare_s"] = time.perf_counter() - t
+    shapes = set()
+    for ds in splits:
+        for i in range(len(ds)):
+            shapes.add(tuple(ds.getitem(i).HW))
+    if max(max(s) for s in shapes) > 1333 or not prepared.endswith(
+            "_prepared"):
+        raise AssertionError(f"prepare left {shapes} in {prepared}")
+    t = time.perf_counter()
+    for i in range(len(splits[0])):
+        splits[0].getitem(i)
+    out["read_image_ms"] = (time.perf_counter() - t) / len(splits[0]) * 1e3
+
+    dm = crowd_human_module(CROWD_BATCH)
+    if len(dm.train_dataset) < CROWD_STEPS * CROWD_BATCH or \
+            len(dm.val_dataset) < CROWD_VAL_BATCHES * CROWD_BATCH:
+        raise AssertionError("the CrowdHuman splits are too short")
+    model = deformable_detr_r50(
+        num_classes=1, with_box_refine=True, device=device,
+        generator=torch.Generator(device=device).manual_seed(0))
+
+    predicted = []
+
+    class Views(ObjectDetectorCallback):
+        def on_val_batch_end(self, trainer, outputs, batch, metrics):
+            if not self._logged_this_epoch:
+                self.frames = batch["frames"]
+            super().on_val_batch_end(trainer, outputs, batch, metrics)
+
+    views = Views()
+    recorder = make_recorder()
+    recorder.caught = []
+    trainer = make_deformable_detr_trainer(
+        model=model, data_module=dm, log="tensorboard",
+        log_dir=os.path.join(root, "expe"), seed=0,
+        limit_val_batches=CROWD_VAL_BATCHES,
+        callbacks=[recorder, MetricsCallback(), views])
+    infer = trainer.inference_fn
+
+    def recording_inference(outputs, **kw):
+        boxes = infer(outputs, **kw)
+        predicted.append(boxes)
+        return boxes
+    trainer.inference_fn = recording_inference
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    trainer.fit(dm.train_dataloader(), dm.val_dataloader(), max_epochs=1,
+                max_steps=CROWD_STEPS)
+    torch.cuda.synchronize()
+    msda, backward, hung = _counts()
+    out["fit_s"] = time.perf_counter() - t0
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    n_val = CROWD_VAL_BATCHES
+    want = (MSDA_CALLS_PER_FORWARD * (CROWD_STEPS + n_val),
+            MSDA_CALLS_PER_FORWARD * CROWD_STEPS, CROWD_STEPS + n_val)
+    if (msda, backward, hung) != want:
+        raise AssertionError(f"(msda launches, backward passes, hungarian "
+                             f"launches) {(msda, backward, hung)}, not {want}")
+    out["launches"] = dict(msda=msda, msda_backward=backward, hungarian=hung)
+    losses = [r["metrics"]["loss_total"] for r in recorder.rows]
+    val = trainer.last_val_metrics
+    if len(losses) != CROWD_STEPS or not all(map(math.isfinite, losses)) \
+            or not math.isfinite(val.get("val_loss_total", math.nan)):
+        raise AssertionError(f"losses {losses}, validation {val}")
+    times = np.diff([t0] + [r["t"] for r in recorder.rows])
+    out.update(step_ms=[round(float(dt) * 1e3, 1) for dt in times],
+               loss_total=losses, val_loss_total=val["val_loss_total"])
+
+    # the logged images against the views drawn on the CPU
+    trainer.logger.flush()
+    events = [e for e in read_events(trainer.logger.writer.path)
+              if "image" in e]
+    frames = views.frames
+    if len(predicted) != 1 or len(events) != min(views.max_images,
+                                                 frames.shape[0]):
+        raise AssertionError(f"{len(events)} logged images, inference run "
+                             f"{len(predicted)} times")
+    for e in events:
+        b = int(e["tag"].rsplit("_", 1)[1])
+        frame = frames[b].cpu()
+        image = (frame.norm01().as_image(torch.float32) / 255).clamp(0, 1)
+        cpu = predicted[0][b].cpu().get_view(frame=image.numpy(),
+                                             frame_size=frame.HW).image
+        _same_image(e["image"], (cpu * 255.0).astype(np.uint8),
+                    f"the logged {e['tag']}")
+    out["logged_images"] = [e["tag"] for e in events]
+
+    # device-busy of one step on a training batch
+    batch = dm.prepare_batch(next(iter(dm.train_dataloader())))
+    inputs = to_device(batch["inputs"], device)
+    targets = to_device(batch["targets"], device)
+
+    def step():
+        trainer.train_step(inputs, targets)[1].cpu()
+    step()
+    n_act, busy, window = _device_busy(
+        _trace(step, [ProfilerActivity.CUDA], 1))
+    out.update(busy_ms=busy / 1e3, idle=1 - busy / window,
+               activities=n_act, bucket=list(batch["inputs"][0].shape[1:3]))
+    print(f"  CrowdHuman [{smi}]: prepare() {out['prepare_s']:.2f} s "
+          f"({len(splits[0])} + {len(splits[1])} images, the long side of "
+          f"the larger ones cut to 1333 or less: {sorted(shapes)}), an "
+          f"image read in {out['read_image_ms']:.1f} ms; "
+          f"Deformable-DETR-R50-refine fp32 bs{CROWD_BATCH} multi-scale: "
+          f"step ms {out['step_ms']} (the first with the warm-up), "
+          f"device-busy {out['busy_ms']:.1f} ms a step at "
+          f"{out['bucket']}, idle {out['idle']:.3f}, peak "
+          f"{out['peak_gib']:.2f} GiB; loss_total {losses}, val "
+          f"{val['val_loss_total']:.4f}; launches {out['launches']}; "
+          f"{len(events)} logged views equal the CPU's")
+    return model, out
+
+
+def mot17_step(model, device, smi):
+    """MOT17 T=2 items -> ``norm_resnet`` -> resize (the 800/1333 rule) ->
+    the detector (eval mode) -> ``inference``; a Renderer grid of the
+    ground-truth and predicted views over T saved as PNG and read back; the
+    card's views against the CPU's from the same fetched predictions."""
+    import numpy as np
+    from aloception_tpu_torch.aloscene.renderer import Renderer, View
+    from aloception_tpu_torch.alodataset import Mot17, Split
+    from aloception_tpu_torch.models.deformable_detr import inference
+    from aloception_tpu_torch.models.deformable_detr import ms_deform_attn \
+        as msda_module
+    from aloception_tpu_torch.ops.cuda import ms_deform_attn_cuda
+    from aloception_tpu_torch.ops.ms_deform_attn import ms_deform_attn_torch
+    from aloception_tpu_torch.runtime import decode
+
+    ds = Mot17(split=Split.TRAIN, sequence_size=2)
+    seqs = {seq for seq, _ in ds.items}
+    if seqs != {"MOT17-02-FRCNN"} or len(ds) != MOT_FRAMES - 1:
+        raise AssertionError(f"detections_set kept {seqs}, {len(ds)} items")
+    t = time.perf_counter()
+    items = [ds.getitem(i) for i in range(len(ds))]
+    read_ms = (time.perf_counter() - t) / len(items) * 1e3
+    H, W = items[0].HW
+    scale = min(800 / min(H, W), 1333 / max(H, W))
+    size = (int(round(H * scale)), int(round(W * scale)))
+    # the first encoder (Lq = Len_v) and decoder call's inputs, kept to hold
+    # the kernel against the plain version at this path's shapes
+    calls, msda = {}, msda_module.ms_deform_attn
+
+    def record(value, shapes, loc, w):
+        site = "encoder" if loc.shape[1] == value.shape[1] else "decoder"
+        if site not in calls:
+            calls[site] = (value.clone(), tuple(tuple(int(s) for s in hw)
+                                                for hw in shapes),
+                           loc.clone(), w.clone())
+        return msda(value, shapes, loc, w)
+
+    model.eval()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t = time.perf_counter()
+    preds = []
+    with torch.inference_mode(), \
+            mock.patch.object(msda_module, "ms_deform_attn", record):
+        for item in items:
+            f = item.to(device).norm_resnet().resize(size)
+            images = f.as_layout(("T", "H", "W", "C")).contiguous()
+            mask = torch.zeros(images.shape[:3], device=device)
+            preds.append(inference(model(images, mask)))
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t) / len(items) * 1e3
+    launches = _counts()[0]
+    if launches != MSDA_CALLS_PER_FORWARD * len(items):
+        raise AssertionError(f"the MOT17 path launched the MSDA kernel "
+                             f"{launches} times")
+    if set(calls) != {"encoder", "decoder"}:
+        raise AssertionError(f"the MOT17 path's MSDA calls: {set(calls)}")
+    errs = {}
+    with torch.inference_mode():
+        for site, args in calls.items():
+            got = ms_deform_attn_cuda(*args)
+            torch.cuda.synchronize()
+            tag = f"MOT17 {site}/float32"
+            err, tol = _gate(got, ms_deform_attn_torch(*args),
+                             torch.float32, tag)
+            errs[tag] = err
+            print(f"msda {tag}: levels {args[1]} B={args[0].shape[0]} "
+                  f"Lq={args[2].shape[1]} [{brief(plan_of(*args))}] "
+                  f"max|kernel-plain|={err:.3e} (tol {tol:.3e}) on the "
+                  "path's own inputs")
+    del calls
+
+    def grid(item, pred):
+        cells = []
+        for t_ in range(item.shape[0]):
+            frame = item[t_]
+            cells.append(frame.get_view(title=f"gt t={t_}"))
+            cells.append(pred[t_].get_view(
+                frame=frame.__get_view__().image, title=f"pred t={t_}"))
+        return Renderer.get_grid_view(cells, cell_grid_size=MOT_GRID_CELL)
+    card_item = items[0].to(device)
+    card, grid_ms = _timed_views(lambda: grid(card_item, preds[0]))
+    cpu = grid(items[0], [p.cpu() for p in preds[0]])
+    _same_image(card, cpu, "the MOT17 grid")
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        path = View(card).save(os.path.join(d, "mot17_grid"))
+        _same_image(decode(path).numpy(), (card * 255).astype(np.uint8),
+                    "the saved grid")
+    n_dets = sum(len(b) for p in preds for b in p)
+    print(f"  MOT17 [{smi}]: {len(items)} T=2 items of {H}x{W} (a read "
+          f"{read_ms:.1f} ms) -> {size} -> Deformable-DETR eval fp32: "
+          f"{forward_ms:.1f} ms an item, {launches} MSDA launches, "
+          f"{n_dets} detections; a 2x2 grid of gt and predicted views at "
+          f"{MOT_GRID_CELL} {grid_ms:.1f} ms, saved and read back equal")
+    return dict(read_item_ms=read_ms, forward_ms=forward_ms,
+                msda_launches=launches, grid_ms=grid_ms, detections=n_dets,
+                msda_errs=errs)
+
+
+def woodscape_views_step(device, smi):
+    """WoodScape frames (one a camera) -> ``WooDScapeSplitDataset`` with
+    boxes and segmentation -> ``Frame.get_view`` of the frame on the card
+    against the CPU frame; the 3-D boxes' view of PR 9's KITTI scene
+    likewise; ms a view (boxes, masks, 3-D boxes, whole frame)."""
+    from aloception_tpu_torch.alodataset import WooDScapeSplitDataset, Split
+
+    ds = WooDScapeSplitDataset(split=Split.TRAIN, labels=["boxes_2d", "seg"])
+    t = time.perf_counter()
+    frames = [ds.getitem(i) for i in range(len(ds))]
+    read_ms = (time.perf_counter() - t) / len(frames) * 1e3
+    frame = frames[0]
+    card = frame.to(device)
+    want = frame.get_view().image
+    got, frame_ms = _timed_views(lambda: card.get_view().image)
+    _same_image(got, want, "the WoodScape frame view")
+    base = frame.__get_view__().image
+    boxes, boxes_ms = _timed_views(
+        lambda: card.boxes2d.get_view(frame=base).image)
+    _same_image(boxes, frame.boxes2d.get_view(frame=base).image,
+                "the WoodScape boxes view")
+    masks, masks_ms = _timed_views(
+        lambda: card.segmentation.__get_view__(frame=base).image)
+    _same_image(masks, frame.segmentation.__get_view__(frame=base).image,
+                "the WoodScape segmentation view")
+    scene = kitti_scene(seed=40)
+    img = scene.__get_view__().image
+    cam = scene.cam_intrinsic
+    card_scene = scene.to(device)
+    wire, wire_ms = _timed_views(lambda: card_scene.boxes3d.get_view(
+        frame=img, cam_intrinsic=card_scene.cam_intrinsic).image)
+    _same_image(wire, scene.boxes3d.get_view(frame=img,
+                                             cam_intrinsic=cam).image,
+                "the KITTI 3-D boxes view")
+    out = dict(read_frame_ms=read_ms, frame_view_ms=frame_ms,
+               boxes_view_ms=boxes_ms, masks_view_ms=masks_ms,
+               boxes3d_view_ms=wire_ms, frames=len(frames))
+    print(f"  WoodScape [{smi}]: {len(frames)} train frames of "
+          f"{frame.HW} (a read {read_ms:.1f} ms); views on the card equal "
+          f"the CPU's, ms a view: frame with boxes and masks "
+          f"{frame_ms:.1f}, boxes {boxes_ms:.1f}, masks {masks_ms:.1f}, "
+          f"KITTI 3-D boxes {wire_ms:.1f}")
+    return out
+
+
+def tracking_views_disk_phase(device):
+    """CrowdHuman, MOT17 and WoodScape directories at their published sizes,
+    written from seeds (``utils/tracking_fixture.py``) into a temporary
+    root that the dataset config names: CrowdHuman through ``prepare()``
+    into Deformable-DETR-R50-refine training with ``ObjectDetectorCallback``
+    (MSDA forward and backward, Hungarian), MOT17 sequences through the
+    detector's Frame path (MSDA) and a Renderer grid, WoodScape frames and
+    the KITTI scene's 3-D boxes through the views, each view on the card
+    against the CPU's."""
+    import tempfile
+    from aloception_tpu_torch.alodataset import base_dataset
+    from aloception_tpu_torch.utils import tracking_fixture as tf
+    smi = _smi()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        dirs = {
+            "CrowdHuman": tf.build_crowd_human_dir(
+                os.path.join(root, "crowd"), seed=6, sizes=CROWD_TRAIN_HW,
+                val_sizes=CROWD_VAL_HW, single_last=False),
+            "mot17": tf.build_mot17_dir(
+                os.path.join(root, "mot17"), seed=7, frames=MOT_FRAMES,
+                hw=MOT_HW, sequences=("MOT17-02-FRCNN", "MOT17-02-DPM")),
+            "woodscape": tf.build_woodscape_dir(
+                os.path.join(root, "woodscape"), seed=8, n=1,
+                hw=WOODSCAPE_HW)}
+        out = {"write_s": time.perf_counter() - t0}
+        config = os.path.join(root, "alodataset_config.json")
+        with open(config, "w") as f:
+            json.dump(dirs, f)
+        with mock.patch.object(base_dataset, "CONFIG_PATH", config):
+            model, out["crowd_human"] = crowd_human_train_step(device, root,
+                                                               smi)
+            out["mot17"] = mot17_step(model, device, smi)
+            del model
+            torch.cuda.empty_cache()
+            out["views"] = woodscape_views_step(device, smi)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"tracking_views_disk phase [{smi}]: {out['seconds']:.1f} s "
+          f"(writing the directories {out['write_s']:.1f} s)")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: "
                          "torch.cuda.is_available() is False")
     from aloception_tpu_torch.ops.cuda.build import build_log, load_library
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi)
+    print(_smi())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     torch.backends.cudnn.allow_tf32 = False
@@ -5110,11 +5536,17 @@ def main():
     flow_disk = flow_disk_phase(device)
     torch.cuda.empty_cache()
     kitti_waymo = kitti_waymo_disk_phase(device)
+    torch.cuda.empty_cache()
+    tracking = tracking_views_disk_phase(device)
+    crowd = tracking["crowd_human"]["launches"]
+    tracking_msda = {"crowd_human_train": crowd["msda"],
+                     "mot17_frame": tracking["mot17"]["msda_launches"]}
     ms_train = coco["train"]["launches"]
     coco_msda = {"multiscale_train": ms_train[0],
                  "multiscale_eval": coco["eval"]["msda_launches"],
                  "from_directory": coco["from_directory"]["msda_launches"]}
-    export_msda = export["deformable"]["request_msda_launches"]
+    export_msda = export["deformable"]["request_msda_launches"] \
+        + export["deformable"]["bytes_request"]["msda_launches"]
     pan_train = panoptic_train["deformable_detr_r50_panoptic"]
     pan_msda = {
         "panoptic_forward":
@@ -5138,26 +5570,28 @@ def main():
         "replaces": "aloception_tpu/ops/pallas/ms_deform_attn_kernel.py:245",
         "launches": launches + frame_launches + msda_train
         + sum(pan_msda.values()) + export_msda + sum(coco_msda.values())
-        + sum(bf16_msda.values()),
+        + sum(bf16_msda.values()) + sum(tracking_msda.values()),
         "launches_by_path": {"fused_preprocess": launches,
                              "frame": frame_launches,
                              "train": msda_train, **pan_msda,
                              # the AOTInductor package's requests
                              "export": export_msda, **coco_msda,
-                             **bf16_msda},
+                             **bf16_msda, **tracking_msda},
         # the training path's backward: the gradient of the plain version,
         # recomputed by the operator's registered backward; the panoptic paths'
         # detector is frozen and takes none
         "backward_passes": msda_backward + pan_train["backward_passes"]
         + commands["backward_passes"] + ms_train[1]
-        + sum(bf16_backward.values()),
+        + sum(bf16_backward.values()) + crowd["msda_backward"],
         "backward_passes_by_path": {
             "train": msda_backward,
             "panoptic_train": pan_train["backward_passes"],
             "panoptic_train_command": commands["backward_passes"],
-            "multiscale_train": ms_train[1], **bf16_backward},
-        "max_abs_err": max(v for k, v in {**errs, **coco["bucket_errs"]}.items()
-                           if "float32" in k),
+            "multiscale_train": ms_train[1], **bf16_backward,
+            "crowd_human_train": crowd["msda_backward"]},
+        "max_abs_err": max(v for k, v in {
+            **errs, **coco["bucket_errs"],
+            **tracking["mot17"]["msda_errs"]}.items() if "float32" in k),
         "max_abs_err_bf16": max(v for k, v in {**errs, **coco["bucket_errs"]
                                                }.items() if "bfloat16" in k),
         # the largest multi-scale bucket's fp32 encoder call
@@ -5188,11 +5622,12 @@ def main():
         # the JAX package's on-device JV (XLA loops, not a Pallas kernel)
         "replaces": "aloception_tpu/ops/hungarian.py:28",
         "launches": hung_train + detr_train["launches"] + hung_pan
-        + ms_train[2] + sum(bf16_hung.values()),
+        + ms_train[2] + sum(bf16_hung.values()) + crowd["hungarian"],
         "launches_by_path": {"train": hung_train,
                              "detr_train": detr_train["launches"],
                              "panoptic_train": hung_pan,
-                             "multiscale_train": ms_train[2], **bf16_hung},
+                             "multiscale_train": ms_train[2], **bf16_hung,
+                             "crowd_human_train": crowd["hungarian"]},
         # the largest query-index difference from the plain version's
         # assignment, and the targets matched differently, as measured
         "max_abs_err": hung_diff["max_abs_err"],
@@ -5230,7 +5665,11 @@ def main():
         "coco_disk": {k: v for k, v in coco.items() if k != "bucket_errs"},
         # the flow, KITTI and Waymo datasets on disk: no kernel of the port
         # (both counts read around each path and 0)
-        "flow_disk": flow_disk, "kitti_waymo_disk": kitti_waymo}))
+        "flow_disk": flow_disk, "kitti_waymo_disk": kitti_waymo,
+        # MOT17, CrowdHuman and WoodScape on disk, the views and the
+        # renderer: the CrowdHuman training and the MOT17 Frame path run
+        # the MSDA (and Hungarian) kernels, counted above
+        "tracking_views_disk": tracking}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

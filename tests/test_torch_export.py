@@ -441,16 +441,23 @@ def test_handler_matches_jax(cli_package, detr_pair, tmp_path):
 
 
 def test_handler_takes_frames_and_refuses_bytes(cli_package):
-    from aloception_tpu_torch.aloscene import Frame
+    """Frames, arrays and encoded bytes of one image give the same boxes;
+    bytes that do not decode are refused with the decoder's reason."""
+    import io
+    from PIL import Image
+    from aloception_tpu_torch.aloscene import Frame, InvalidSampleError
     _, _, out = cli_package
     handler = ModelHandler(input_size=HW, threshold=0.0,
                            background_class=CLASSES)
     handler.initialize(out)
     img = np.random.RandomState(1).randint(0, 255, (80, 90, 3), np.uint8)
     frame = Frame(torch.from_numpy(img).permute(2, 0, 1).float())
-    from_frame, from_array = (handler.handle([x, x]) for x in (frame, img))
-    assert from_frame == from_array
-    with pytest.raises(TypeError, match="decoder"):
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "PNG")
+    from_frame, from_array, from_bytes = (
+        handler.handle([x, x]) for x in (frame, img, buf.getvalue()))
+    assert from_frame == from_array == from_bytes
+    with pytest.raises(InvalidSampleError, match="image decoder"):
         handler.preprocess([b"\xff\xd8\xff", img])
 
 

@@ -118,6 +118,21 @@ def test_flow_kitti_waymo_modules_are_checked(module):
     assert PKG / module in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "aloscene/renderer/__init__.py", "aloscene/renderer/renderer.py",
+    "aloscene/renderer/draw.py", "aloscene/renderer/text.py",
+    "aloscene/renderer/colormap.py", "alodataset/mot17.py",
+    "alodataset/crowd_human.py", "alodataset/woodscape.py",
+    "utils/tracking_fixture.py", "train/callbacks.py",
+    "export/production/model_handler.py"])
+def test_tracking_views_modules_are_checked(module):
+    """The tracking and crowd datasets, the renderer, the views' drawing and
+    text, the fixture writer and the callbacks are among the sources
+    checked below; the glyph table the text draws from is in the port."""
+    assert PKG / module in SOURCES
+    assert (PKG / "aloscene" / "renderer" / "glyphs.npz").exists()
+
+
 @pytest.mark.parametrize("child", ["points2d", "cam_intrinsic"])
 def test_rotate_carries_unrotatable_children_as_jax(child):
     """``Points2D`` and ``CameraIntrinsic`` cannot rotate (their

@@ -194,10 +194,12 @@ def test_sequences_and_segmentation_match_jax(dirs, name, key):
 def test_lazy_names_match_jax():
     for name in ("KittiStereoFlowSFlow2015Dataset", "KittiSplitDataset",
                  "KittiDepthDataset", "KittiObjectDataset", "WaymoDataset",
-                 "FlyingThings3DSubsetDataset", "ChairsSDHomDataset"):
+                 "FlyingThings3DSubsetDataset", "ChairsSDHomDataset",
+                 "Mot17", "CrowdHumanDataset", "WooDScapeDataset",
+                 "WooDScapeSplitDataset"):
         assert getattr(tds, name).__name__ == getattr(jds, name).__name__
-    with pytest.raises(AttributeError, match="ROADMAP"):
-        tds.Mot17
+    with pytest.raises(AttributeError):
+        tds.NotADataset
 
 
 # ----------------------------------------------------------------------
