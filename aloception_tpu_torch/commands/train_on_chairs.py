@@ -14,16 +14,19 @@ instead. Runs on the CUDA card, or on the CPU with ``--cpu``; without a card
 and without ``--cpu`` it raises. With ``--max_steps`` the learning rate
 follows the OneCycle schedule over max_steps + 100 updates, as the
 reference. A checkpoint it writes restores in ``eval_on_sintel
---ckpt_dir``.
+--ckpt_dir``. ``--multihost`` starts the process group before the mesh is
+built (``parallel.init_multihost``; NCCL on the cards, gloo with
+``--cpu``): each process steps its rows of every batch (DDP), and the
+context encoder's BatchNorm takes the global batch's statistics.
 """
 
 from __future__ import annotations
 
 import argparse
 
-# flags of the JAX command that the port does not take yet, with their
-# ROADMAP item
-NOT_PORTED = {"multihost": "A12", "steps_per_dispatch": "A12"}
+# flags of the JAX command that the port does not take, with their ROADMAP
+# item
+NOT_PORTED = {"steps_per_dispatch": "A12: the TPU's scan-blocked dispatch"}
 
 
 def main(argv=None):
@@ -52,13 +55,19 @@ def main(argv=None):
     p.add_argument("--log", default=None, choices=[None, "tensorboard", "tb"],
                    help="write a TensorBoard event file into the run's "
                         "checkpoint directory")
-    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--multihost", action="store_true",
+                   help="start the process group before building the mesh "
+                        "(ALO_COORDINATOR_ADDRESS / ALO_NUM_PROCESSES / "
+                        "ALO_PROCESS_ID, or torchrun's variables)")
     p.add_argument("--steps_per_dispatch", type=int, default=None)
     args = p.parse_args(argv)
     for flag, item in NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP {item})")
+                f"--{flag} is not ported (ROADMAP {item})")
+    if args.multihost:
+        from aloception_tpu_torch.parallel import init_multihost
+        init_multihost(device="cpu" if args.cpu else None)
 
     import torch
     from aloception_tpu_torch.models.raft import RAFTBase, built

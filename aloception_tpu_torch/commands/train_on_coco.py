@@ -27,16 +27,24 @@ reference's multi-scale geometry (shorter side 480-800, longer at most
 criterion in float32); ``--log tensorboard`` writes an event file of the
 train and validation metrics into the run's checkpoint directory.
 Runs on the CUDA card, or on the CPU with ``--cpu``; without a card and
-without ``--cpu`` it raises.
+without ``--cpu`` it raises. ``--multihost`` starts the process group
+(``parallel.init_multihost``: ``ALO_COORDINATOR_ADDRESS`` /
+``ALO_NUM_PROCESSES`` / ``ALO_PROCESS_ID``, or torchrun's variables; NCCL
+on the cards, gloo with ``--cpu``) before the mesh is built; each process
+then steps its rows of every batch (DDP), and ``--tp N`` places the wide
+Linears over N ranks::
+
+    torchrun --nproc_per_node 2 -m aloception_tpu_torch.commands.train_on_coco \
+        --cpu --sample --tiny --fast_dev_run --multihost
 """
 
 from __future__ import annotations
 
 import argparse
 
-# flags of the JAX command that the port does not take yet, with their
-# ROADMAP item
-NOT_PORTED = {"tp": "A12", "multihost": "A12"}
+# flags of the JAX command that the port does not take, with their ROADMAP
+# item
+NOT_PORTED = {"steps_per_dispatch": "A12: the TPU's scan-blocked dispatch"}
 
 
 def add_argparse_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -73,8 +81,13 @@ def add_argparse_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--log", default=None, choices=[None, "tensorboard", "tb"],
                    help="write a TensorBoard event file into the run's "
                         "checkpoint directory")
-    p.add_argument("--tp", type=int, default=None)
-    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--tp", type=int, default=None,
+                   help="tensor-parallel axis size")
+    p.add_argument("--multihost", action="store_true",
+                   help="start the process group before building the mesh "
+                        "(ALO_COORDINATOR_ADDRESS / ALO_NUM_PROCESSES / "
+                        "ALO_PROCESS_ID, or torchrun's variables)")
+    p.add_argument("--steps_per_dispatch", type=int, default=None)
     return p
 
 
@@ -83,7 +96,10 @@ def main(argv=None):
     for flag, item in NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP {item})")
+                f"--{flag} is not ported (ROADMAP {item})")
+    if args.multihost:
+        from aloception_tpu_torch.parallel import init_multihost
+        init_multihost(device="cpu" if args.cpu else None)
     from aloception_tpu_torch.models.transformers import entry_device
     from aloception_tpu_torch.train import (
         ApMetricsCallback, CocoDetection2Detr, MetricsCallback,
@@ -100,7 +116,7 @@ def main(argv=None):
     import torch
     kwargs = dict(data_module=dm, run_id=args.run_id,
                   expe_name=args.expe_name, device=device, seed=args.seed,
-                  log=args.log,
+                  log=args.log, tp=args.tp,
                   dtype=torch.bfloat16 if args.bf16 else torch.float32,
                   callbacks=[MetricsCallback(), PQMetricsCallback()
                              if panoptic else ApMetricsCallback()])

@@ -68,14 +68,14 @@ def loss_labels_focal(pred_logits: torch.Tensor, targets: Dict,
                       alpha: float = 0.25, gamma: float = 2.0
                       ) -> torch.Tensor:
     """Focal classification: matched queries get a one-hot target, all
-    others all-zeros."""
+    others all-zeros; over ``num_boxes`` (``num_boxes_of``: at least 1)."""
     B, Nq, C = pred_logits.shape
     classes = torch.arange(C, device=pred_logits.device)
     onehot = _scatter_to_queries(
         torch.zeros_like(pred_logits), targets, matched,
         (targets["labels"][..., None] == classes).to(pred_logits.dtype))
     loss = sigmoid_focal_loss(pred_logits, onehot, alpha, gamma)
-    return loss.mean(1).sum() * Nq / num_boxes.clamp(min=1.0) / C
+    return loss.mean(1).sum() * Nq / num_boxes / C
 
 
 def deformable_criterion(m_outputs: Dict, targets: Dict,

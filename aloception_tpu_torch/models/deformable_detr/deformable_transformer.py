@@ -12,6 +12,13 @@ Modules and parameters carry the reference ``state_dict`` names
 (``encoder.layers.{i}``, ``decoder.layers.{i}``, ``level_embed``,
 ``reference_points``; with refinement the decoder holds the model's
 ``bbox_embed`` as ``decoder.bbox_embed``).
+
+Under a mesh with sp > 1 (``parallel.use_mesh``) the encoder runs sequence
+parallel: each rank keeps its slice of the queries (tokens, positions and
+reference points) through LayerNorm, the FFN and MSDA, whose value is
+projected from the layer's whole input (an all-gather that carries
+gradients); the MSDA kernel then runs at Lq / sp queries. The memory is
+gathered whole for the decoder.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.shard import (SequenceShard, constrain_tokens,
+                               sequence_shard)
 from ..transformers import LayerNorm
 
 from .ms_deform_attn import MSDeformAttn
@@ -80,9 +89,16 @@ class DeformableEncoderLayer(nn.Module):
         self.norm2 = LayerNorm(d_model, eps=LN_EPS, device=device)
 
     def forward(self, src, pos, reference_points, spatial_shapes,
-                padding_mask=None):
-        src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes,
-                              padding_mask)
+                padding_mask=None, shard: Optional[SequenceShard] = None):
+        """With a ``shard``, ``src`` and ``reference_points`` hold this
+        rank's queries, ``pos`` all of them."""
+        if shard is None:
+            src2 = self.self_attn(src + pos, reference_points, src,
+                                  spatial_shapes, padding_mask)
+        else:
+            src2 = self.self_attn(src + shard.split(pos), reference_points,
+                                  shard.gather(src), spatial_shapes,
+                                  padding_mask)
         src = self.norm1(src + self.dropout(src2))
         src2 = self.linear2(self.dropout(F.relu(self.linear1(src))))
         return self.norm2(src + self.dropout(src2))
@@ -125,10 +141,13 @@ class DeformableTransformerEncoder(nn.Module):
 
     def forward(self, src, pos, reference_points, spatial_shapes,
                 padding_mask=None):
+        shard = sequence_shard(src.shape[1])
+        reference_points = constrain_tokens(reference_points, shard)
         for layer in self.layers:
+            src = constrain_tokens(src, shard)
             src = layer(src, pos, reference_points, spatial_shapes,
-                        padding_mask)
-        return src
+                        padding_mask, shard)
+        return src if shard is None else shard.gather(src)
 
 
 class DeformableTransformerDecoder(nn.Module):

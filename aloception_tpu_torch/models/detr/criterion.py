@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ...ops import boxes as box_ops
+from ...parallel.shard import batch_count
 from .matcher import cost_matrix, match_outputs
 
 
@@ -39,7 +40,8 @@ def loss_labels(pred_logits: torch.Tensor, targets: Dict,
                 matched: torch.Tensor, num_boxes: torch.Tensor,
                 eos_coef: float = 0.1, background_class: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Weighted cross-entropy: background queries get weight eos_coef."""
+    """Weighted cross-entropy: background queries get weight eos_coef; the
+    weights' total is the global batch's under data parallelism."""
     B, Nq, C = pred_logits.shape
     bg = C - 1 if background_class is None else background_class
     target_classes = _scatter_to_queries(
@@ -48,7 +50,7 @@ def loss_labels(pred_logits: torch.Tensor, targets: Dict,
     ce = -F.log_softmax(pred_logits, -1).gather(
         -1, target_classes[..., None])[..., 0]
     w = torch.where(target_classes == bg, eos_coef, 1.0)
-    return (ce * w).sum() / w.sum(), target_classes
+    return (ce * w).sum() / batch_count(w.sum(), None), target_classes
 
 
 def loss_boxes(pred_boxes: torch.Tensor, targets: Dict, matched: torch.Tensor,
@@ -67,8 +69,10 @@ def loss_boxes(pred_boxes: torch.Tensor, targets: Dict, matched: torch.Tensor,
 
 
 def num_boxes_of(targets: Dict) -> torch.Tensor:
-    """The count of valid targets, at least 1, as a float32 tensor."""
-    return targets["valid"].sum().float().clamp(min=1.0)
+    """The count of valid targets, at least 1, as a float32 tensor: under
+    data parallelism the global batch's over dp (``batch_count``), as the
+    reference's ``get_num_boxes`` all-reduces it."""
+    return batch_count(targets["valid"].sum())
 
 
 def detr_criterion(m_outputs: Dict, targets: Dict,

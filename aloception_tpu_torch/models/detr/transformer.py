@@ -12,6 +12,12 @@ attention weights, on each sublayer's output before its residual add, and
 after the FFN's ReLU. Modules carry the reference ``state_dict`` names
 (``encoder.layers.{i}``, ``decoder.layers.{i}.multihead_attn``,
 ``decoder.norm``).
+
+Under a mesh with sp > 1 (``parallel.use_mesh``) the encoder runs sequence
+parallel, as the JAX package's ``constrain_tokens`` hooks make XLA run it:
+each rank keeps its slice of the tokens through LayerNorm and the FFN, its
+queries attend to every key and value (an all-gather of the layer's input
+that carries gradients), and the memory is gathered whole for the decoder.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.shard import (SequenceShard, constrain_tokens,
+                               sequence_shard)
 from ..transformers import LayerNorm
 
 # flax nn.LayerNorm's default epsilon, which the JAX package uses
@@ -43,12 +51,18 @@ class EncoderLayer(nn.Module):
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, src: torch.Tensor, pos: torch.Tensor,
-                key_padding_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                key_padding_mask: Optional[torch.Tensor] = None,
+                shard: Optional[SequenceShard] = None) -> torch.Tensor:
         """src, pos: (B, L, C); key_padding_mask: (B, L) bool, True =
-        padded (ignored as a key)."""
-        q = k = src + pos
-        src2 = self.self_attn(q, k, src, key_padding_mask=key_padding_mask,
+        padded (ignored as a key). With a ``shard``, ``src`` holds this
+        rank's tokens and ``pos`` all of them."""
+        if shard is None:
+            q = k = src + pos
+            v = src
+        else:
+            v = shard.gather(src)
+            q, k = src + shard.split(pos), v + pos
+        src2 = self.self_attn(q, k, v, key_padding_mask=key_padding_mask,
                               need_weights=False)[0]
         src = self.norm1(src + self.dropout(src2))
         src2 = self.linear2(self.dropout(F.relu(self.linear1(src))))
@@ -96,9 +110,11 @@ class TransformerEncoder(nn.Module):
                                     for _ in range(num_layers))
 
     def forward(self, src, pos, key_padding_mask=None):
+        shard = sequence_shard(src.shape[1])
         for layer in self.layers:
-            src = layer(src, pos, key_padding_mask)
-        return src
+            src = constrain_tokens(src, shard)
+            src = layer(src, pos, key_padding_mask, shard)
+        return src if shard is None else shard.gather(src)
 
 
 class TransformerDecoder(nn.Module):

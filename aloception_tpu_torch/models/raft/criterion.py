@@ -6,7 +6,8 @@ loss = sum_i gamma^(n - i - 1) * mean |flow_i - gt| over every element of
 sparse ground truth the two differ severalfold, and the reference's learning
 rates assume this one). A pixel is valid where |gt| < max_flow and
 ``valid`` is 1. EPE and the 1/3/5 px accuracies of the last flow average
-over the valid pixels.
+over the valid pixels (of the global batch under data parallelism:
+``batch_count``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+
+from ...parallel.shard import batch_count
 
 
 def raft_sequence_loss(flow_preds: Sequence[torch.Tensor],
@@ -29,7 +32,7 @@ def raft_sequence_loss(flow_preds: Sequence[torch.Tensor],
     v = (mag < max_flow).float()
     if valid is not None:
         v = v * valid.float()
-    denom = v.sum().clamp(min=1.0)
+    denom = batch_count(v.sum())
     v = v[:, None]
 
     loss = 0.0

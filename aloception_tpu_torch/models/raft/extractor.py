@@ -16,7 +16,10 @@ Norms, each computed in at least float32 and cast back to its input's dtype
   in train mode it normalises with the batch's statistics and moves the
   running ones toward them by 0.1 (flax's momentum 0.9) as flax does: the
   variance it keeps is the biased batch variance, where
-  ``nn.BatchNorm2d`` keeps the unbiased one;
+  ``nn.BatchNorm2d`` keeps the unbiased one; under data parallelism
+  (``parallel.use_mesh`` with dp > 1) the statistics are the global
+  batch's, from sums over the dp group that carry gradients, as the JAX
+  package's one jit over the global batch computes them;
 - ``group``: GroupNorm, eps 1e-5: 8 groups in the stem, planes // 8 in the
   blocks, planes // 8 even on the bottleneck's planes // 4 norms;
 - ``none``: identity.
@@ -29,6 +32,9 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...parallel.mesh import axis_group, axis_size, current_mesh
+from ...parallel.shard import dp_sum
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:
@@ -46,6 +52,8 @@ class BatchNorm(nn.BatchNorm2d):
         y = _wide(x)
         if not self.training:
             return super().forward(y).to(x.dtype)
+        if axis_group(current_mesh(), "dp") is not None:
+            return self._global_batch(y).to(x.dtype)
         with torch.no_grad():
             var, mean = torch.var_mean(y, (0, 2, 3), unbiased=False)
             self.running_mean.lerp_(mean, self.momentum)
@@ -53,6 +61,21 @@ class BatchNorm(nn.BatchNorm2d):
             self.num_batches_tracked += 1
         return F.batch_norm(y, None, None, self.weight, self.bias,
                             training=True, eps=self.eps).to(x.dtype)
+
+    def _global_batch(self, y: torch.Tensor) -> torch.Tensor:
+        """Train mode over the dp group's batch: every rank holds as many
+        rows (``shard_batch``)."""
+        count = y.numel() // y.shape[1] * axis_size(current_mesh(), "dp")
+        mean = dp_sum(y.sum((0, 2, 3))) / count
+        centred = y - mean[None, :, None, None]
+        var = dp_sum(centred.pow(2).sum((0, 2, 3))) / count
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return centred * scale[None, :, None, None] \
+            + self.bias[None, :, None, None]
 
 
 class GroupNorm(nn.GroupNorm):

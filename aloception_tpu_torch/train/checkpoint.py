@@ -6,7 +6,9 @@ records each save's monitored metrics, so "best" resolves from the registry.
 A checkpoint is a dict: {"model": state_dict, "optimizer": its state,
 "step": int, "rng": the CPU and CUDA generator states}; the model's entry
 holds float32 masters where it trained in bfloat16, so that it loads into a
-model of either precision.
+model of either precision, and its tensors are whole ones, so that it
+loads into a run of any world size. Under a process group only rank 0
+writes (``write``); every rank reads.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel.shard import load_full_state_dict
+
 FILE = "checkpoint.pt"
 
 
@@ -26,9 +30,13 @@ class CheckpointManager:
 
     def __init__(self, ckpt_dir: str, monitor: str = "val_loss",
                  mode: str = "min", save_top_k: int = 1,
-                 save_last: bool = True):
+                 save_last: bool = True, write: bool = True):
+        """``write`` False: ``save`` writes nothing and nothing is created
+        (the ranks of a process group other than 0)."""
         self.ckpt_dir = os.path.abspath(ckpt_dir)
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
         self.monitor = monitor
         self.mode = mode
         self.save_top_k = save_top_k
@@ -49,6 +57,8 @@ class CheckpointManager:
     def save(self, step: int, state: Any, metrics: Optional[Dict] = None):
         """Save ``state`` (any object ``torch.save`` takes; tensors are moved
         to the CPU first) and prune beyond save_top_k by the monitor."""
+        if not self.write:
+            return
         path = os.path.join(self.ckpt_dir, str(step))
         os.makedirs(path, exist_ok=True)
         metrics = {k: float(v) for k, v in (metrics or {}).items()}
@@ -113,7 +123,8 @@ class CheckpointManager:
         ``optimizer`` (when given) and set the CPU and CUDA generators to
         its states. Returns the saved step."""
         tree = self.restore_tree(step, best)
-        model.load_state_dict(tree["model"])
+        # whole tensors: a placed parameter (tp, FSDP) takes its shard
+        load_full_state_dict(model, tree["model"])
         if optimizer is not None and "optimizer" in tree:
             optimizer.load_state_dict(tree["optimizer"])
             # a model in a lower precision resumes from the float32 masters

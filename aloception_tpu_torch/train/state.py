@@ -29,16 +29,22 @@ masters' float32 gradients, the norm is taken and clipped and AdamW steps in
 float32 on the masters, and the masters are copied back into the model,
 rounded. A checkpoint holds the masters under the model's key names
 (``model_state_dict``), so that it loads into a float32 model as it is.
+
+Under tensor parallelism or FSDP (``parallel.partition_params``) the
+parameters, their gradients and the AdamW moments are DTensors, each
+rank's shard; the global norm then sums the shards' squares over the ranks
+that split them, and the clipping and the update act on the shards.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..models.transformers import cast_for_training
+from ..parallel.shard import place_optimizer_state
 
 
 def onecycle_schedule(peak_lr: float, total_steps: int,
@@ -66,6 +72,40 @@ def _components(name: str) -> Tuple[str, ...]:
     return tuple(name.split("."))
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """The local shard of a DTensor, the tensor itself otherwise."""
+    return getattr(t, "_local_tensor", t)
+
+
+def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The L2 norm of all of ``grads``, a 0-d float32 tensor. A DTensor
+    counts its local shard, summed over each mesh dim that shards it (an
+    all-reduce per kind of placement); a replicated one counts once."""
+    plain = [g for g in grads if not hasattr(g, "_local_tensor")]
+    sharded = {}
+    for g in grads:
+        if hasattr(g, "_local_tensor"):
+            dims = tuple(i for i, pl in enumerate(g.placements)
+                         if pl.is_shard())
+            sharded.setdefault((id(g.device_mesh), dims),
+                               (g.device_mesh, dims, []))[2].append(g)
+    if not sharded:
+        return torch.linalg.vector_norm(torch.stack(
+            [n.float() for n in torch._foreach_norm(plain)]))
+    import torch.distributed as dist
+    sq = 0.0
+    for mesh, dims, gs in sharded.values():
+        part = torch.stack([n.float() for n in torch._foreach_norm(
+            [g._local_tensor for g in gs])]).pow(2).sum()
+        for d in dims:
+            dist.all_reduce(part, group=mesh.get_group(d))
+        sq = sq + part
+    if plain:
+        sq = sq + torch.stack([n.float() for n in torch._foreach_norm(
+            plain)]).pow(2).sum()
+    return sq.sqrt()
+
+
 def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float
                          ) -> torch.Tensor:
     """Scale ``grads`` in place by ``max_norm / norm`` where their global norm
@@ -73,11 +113,10 @@ def clip_by_global_norm_(grads: Iterable[torch.Tensor], max_norm: float
     norm before clipping, a 0-d float32 tensor on the gradients' device. No
     host sync."""
     grads = [g for g in grads if g is not None]
-    norm = torch.linalg.vector_norm(torch.stack(
-        [n.float() for n in torch._foreach_norm(grads)]))
+    norm = global_norm(grads)
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
-    torch._foreach_mul_(grads, scale)
+    torch._foreach_mul_([_local(g) for g in grads], scale)
     return norm
 
 
@@ -95,6 +134,13 @@ class TrainOptimizer:
         """With a ``dtype`` other than float32, the masters are taken from
         the model's parameters as they are (exact when it was built in
         float32) and the model is then cast by ``cast_for_training``."""
+        # what builds the same optimizer over a model whose parameters
+        # were replaced (``parallel.partition_params``)
+        self.config = dict(lr=lr, lr_backbone=lr_backbone,
+                           weight_decay=weight_decay, grad_clip=grad_clip,
+                           accumulate_steps=accumulate_steps,
+                           schedule=schedule, freeze_prefixes=freeze_prefixes,
+                           dtype=dtype)
         self.lr, self.lr_backbone = lr, lr_backbone
         self.grad_clip = grad_clip
         self.accumulate_steps = max(1, int(accumulate_steps))
@@ -128,10 +174,14 @@ class TrainOptimizer:
         self.frozen = {name: masters[name] for name, p in
                        model.named_parameters() if name in masters
                        and name not in low and p.dtype != torch.float32}
+        # FSDP leaves small parameters whole beside its DTensors: the
+        # multi-tensor kernels refuse the mix (torch 2.11), one per tensor
+        mixed = len({hasattr(m, "_local_tensor") for m in self.masters}) > 1
         self.adamw = torch.optim.AdamW(
             [{"params": self.masters[:len(head)], "lr": lr},
              {"params": self.masters[len(head):], "lr": lr_backbone}],
-            lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+            lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
+            foreach=False if mixed else None)
         self.micro_steps = 0       # backward passes since the last update
         self.updates = 0           # parameter updates applied
 
@@ -165,9 +215,8 @@ class TrainOptimizer:
         if not grads:
             raise RuntimeError("step() before any backward()")
         if self.micro_steps < self.accumulate_steps:
-            norm = torch.linalg.vector_norm(torch.stack(
-                [n.float() for n in torch._foreach_norm(grads)]))
-            return norm * (self.accumulate_steps / self.micro_steps)
+            return global_norm(grads) * (self.accumulate_steps
+                                         / self.micro_steps)
         norm = clip_by_global_norm_(grads, self.grad_clip)
         self._set_lr()
         self.adamw.step()
@@ -203,7 +252,10 @@ class TrainOptimizer:
                 "micro_steps": self.micro_steps, "updates": self.updates}
 
     def load_state_dict(self, state: dict):
+        """Load a state of whole tensors (any world size): each moment is
+        placed as its parameter."""
         self.adamw.load_state_dict(state["adamw"])
+        place_optimizer_state(self.adamw)
         self.micro_steps = state["micro_steps"]
         self.updates = state["updates"]
 

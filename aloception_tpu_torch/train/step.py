@@ -40,11 +40,14 @@ def pack_metrics(metrics: Dict[str, torch.Tensor]
 
 def make_train_step(model: nn.Module, optimizer: TrainOptimizer,
                     criterion: Callable,
-                    forward_kwargs: Optional[Dict] = None) -> Callable:
+                    forward_kwargs: Optional[Dict] = None,
+                    after_backward: Optional[Callable] = None) -> Callable:
     """``step(inputs, targets)`` -> (sorted metric keys, packed metrics),
     including ``grad_norm``: the forward is ``model(*inputs,
     **forward_kwargs)``, whatever the model's inputs are (images and mask
-    for the detectors, two frames for RAFT)."""
+    for the detectors, two frames for RAFT). ``after_backward()`` runs
+    between the backward and the optimizer's step (the Trainer's gradient
+    sync)."""
     kwargs = dict(forward_kwargs or {})
 
     def step(inputs: Sequence[torch.Tensor], targets: Dict
@@ -53,6 +56,8 @@ def make_train_step(model: nn.Module, optimizer: TrainOptimizer,
         out = to_float32(model(*inputs, **kwargs))
         loss, metrics = criterion(out, targets)
         optimizer.backward(loss)
+        if after_backward is not None:
+            after_backward()
         metrics["grad_norm"] = optimizer.step()
         return pack_metrics(metrics)
 

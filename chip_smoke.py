@@ -241,6 +241,26 @@
     the card, the boxes', masks' and the KITTI scene's 3-D boxes' views,
     each equal to the CPU's; read, prepare, step, device-busy, view and
     grid times beside the card's name and power limit.
+23. ``parallel/`` (``parallel_phase``; no kernel of its own, the MSDA and
+    Hungarian kernels launched on every rank): Deformable-DETR-R50-refine
+    (float32, TF32 off, dropout 0) at 640x640 through ``Trainer.fit``, as
+    (a) two ranks on the one card over gloo with CUDA tensors, started by
+    ``init_multihost``: 2 DDP steps of bs1 a rank against one process
+    stepping the global bs2 batch row by row (the ranks' numerics) and,
+    printed, batched; then a sequence-parallel run (sp 2: both rows a rank,
+    the encoder's tokens split, its MSDA launches at Lq 4,250, their plan
+    recorded) against the batched step; RAFT (hidden 128, 4 levels) one DDP
+    step of bs1 a rank at 368x496, its running statistics against the
+    global batch's (1e-5); (b) a world of one on NCCL: the same steps under
+    a mesh of one (DDP) and under FSDP against the unwrapped step; (c)
+    ``parallel.dryrun`` on 8 CPU gloo ranks at tiny widths (FSDP, TP, SP
+    and the pipeline, the checks that the sharding is real). Gates: losses
+    1e-4 relative, gradients 1e-3 of max|g| (the tensors feeding the
+    sampling locations by L2 at 1e-2), matched queries equal, the ranks'
+    parameters equal and within 1e-5 * max(1, max|p|) of the one process's
+    but for 1e-4 of them (AdamW's steps of near-zero gradients); step ms,
+    peak GiB, collectives and kernel counts printed; one process run twice
+    gives the floor.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
@@ -5442,6 +5462,481 @@ def tracking_views_disk_phase(device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# parallel/: two ranks on the one card over gloo, a world of one on
+# NCCL, the 8-rank CPU dry run
+# ---------------------------------------------------------------------------
+PARALLEL_STEPS = 2
+PARALLEL_RAFT_HW = (368, 496)
+PARALLEL_DEVICE = "cuda"      # where the ranks of (a) and (b) run
+PARALLEL_DIR = "aloception_tpu_torch/_build/parallel"
+
+
+class _StepRecorder:
+    """A Trainer callback: each train batch's metrics and host clock (read
+    after the batch's metrics fetch, its one synchronisation)."""
+
+    def __init__(self):
+        self.metrics, self.t = [], []
+
+    def on_train_batch_end(self, trainer, metrics, step):
+        self.metrics.append(dict(metrics))
+        self.t.append(time.perf_counter())
+
+    def on_val_batch_end(self, *a): ...
+    def on_val_epoch_end(self, *a): ...
+    def on_epoch_end(self, *a): ...
+
+
+def _gated_criterion(outputs):
+    """The Deformable criterion, its float32 outputs kept (detached) in
+    ``outputs`` so that the matched queries are read after the counts."""
+    from aloception_tpu_torch.models.deformable_detr import (
+        deformable_criterion)
+
+    def criterion(out, targets):
+        outputs.append((_detach(out), targets))
+        return deformable_criterion(out, targets)
+    return criterion
+
+
+def _detach(tree):
+    if isinstance(tree, dict):
+        return {k: _detach(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_detach(v) for v in tree)
+    return tree.detach() if isinstance(tree, torch.Tensor) else tree
+
+
+def _matched(out, targets):
+    from aloception_tpu_torch.models.deformable_detr.criterion import (
+        focal_cost_matrix)
+    from aloception_tpu_torch.models.detr.matcher import match_outputs
+    return torch.stack(match_outputs([out] + out["aux_outputs"], targets,
+                                     focal_cost_matrix)).cpu()
+
+
+class _RowWise(torch.nn.Module):
+    """The model's forward row by row (batch 1 each), the outputs stacked
+    back: one process's step of the global batch (the criterion's counts
+    are the batch's) with the numerics of a bs1 rank's forward. Two
+    correct float32 steps part where rounding moves a sampling point
+    across a cell border (``train_gate_phase``), and batch 1 and batch 2
+    convolutions and GEMMs round differently."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, images, mask):
+        return _cat_rows([self.model(images[i:i + 1], mask[i:i + 1])
+                          for i in range(images.shape[0])])
+
+
+def _cat_rows(outs):
+    first = outs[0]
+    if isinstance(first, dict):
+        return {k: _cat_rows([o[k] for o in outs]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_cat_rows([o[i] for o in outs])
+                           for i in range(len(first)))
+    if isinstance(first, torch.Tensor) and first.dim() \
+            and first.shape[0] == 1:
+        return torch.cat(outs)
+    return first
+
+
+def parallel_deformable_run(device, tag, count_ops=False, rowwise=False,
+                            **trainer_kwargs):
+    """``gate_setup``'s Deformable-DETR-R50-refine (float32, dropout 0) and
+    its batch of 2 at 640 x 640, through ``Trainer.fit`` for PARALLEL_STEPS
+    steps on the batch (under a process group: this rank's rows, the mesh
+    ``trainer_kwargs`` gives). Returns the steps' metrics and ms, the first
+    step's gradients (averaged over the ranks, before the update) and
+    matched queries of this rank's rows, the parameters after the steps,
+    the kernel counts and plans of the steps, the collectives (DDP's bucket
+    all-reduces; with ``count_ops`` every collective op too, which slows
+    the steps), the peak GiB, and the kernel held against the plain version
+    in float32 on the run's own first call at each launch shape (B, Lq,
+    Len_v: the encoder's, at Lq / sp under sequence parallelism, and the
+    decoder's). ``rowwise``: the forward row by row (``_RowWise``)."""
+    from aloception_tpu_torch.models.deformable_detr import ms_deform_attn \
+        as msda_module
+    from aloception_tpu_torch.ops.cuda import ms_deform_attn_cuda
+    from aloception_tpu_torch.ops.ms_deform_attn import ms_deform_attn_torch
+    from aloception_tpu_torch.parallel import shard_batch
+    from aloception_tpu_torch.parallel.dryrun import CollectiveCount
+    from aloception_tpu_torch.train import Trainer
+
+    model, images, mask, targets = gate_setup(device)
+    if rowwise:
+        model = _RowWise(model)
+    batch = {"inputs": (images, mask), "targets": targets}
+    rec, outputs, grads = _StepRecorder(), [], []
+    trainer = Trainer(model, _gated_criterion(outputs),
+                      prepare_batch=lambda raw, training=True: batch,
+                      callbacks=[rec], log_dir=os.path.join(
+                          PARALLEL_DIR, "expe"), project="parallel",
+                      expe_name=tag, run_id=tag, **trainer_kwargs)
+    step = trainer.optimizer.adamw.step
+
+    def capture(*a, **kw):      # the gradients the first update is given
+        if not grads:
+            grads.append({n: p.grad.detach().clone() for n, p in
+                          trainer.model.named_parameters()
+                          if p.grad is not None})
+        return step(*a, **kw)
+
+    trainer.optimizer.adamw.step = capture
+    collectives = CollectiveCount()
+    if isinstance(trainer.forward_model,
+                  torch.nn.parallel.DistributedDataParallel):
+        collectives.hook(trainer.forward_model)
+    calls, msda = {}, msda_module.ms_deform_attn
+
+    def record(value, shapes, loc, w):
+        key = (value.shape[0], loc.shape[1], value.shape[1])
+        if key not in calls:
+            calls[key] = (value.detach().clone(), shapes,
+                          loc.detach().clone(), w.detach().clone())
+        return msda(value, shapes, loc, w)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    ms_deform_attn_cuda.plans = {}
+    t0 = time.perf_counter()
+    with collectives if count_ops else contextlib.nullcontext(), \
+            mock.patch.object(msda_module, "ms_deform_attn", record):
+        trainer.fit([None] * PARALLEL_STEPS, max_steps=PARALLEL_STEPS)
+    counts, plans = _counts(), dict(ms_deform_attn_cuda.plans)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    msda_errs = {}
+    with torch.no_grad():
+        for (B, Lq, len_v), args in calls.items():
+            got = ms_deform_attn_cuda(*args)
+            torch.cuda.synchronize()
+            key = f"parallel {tag} B{B} Lq{Lq} Len_v{len_v}/float32"
+            msda_errs[key] = _gate(got, ms_deform_attn_torch(*args),
+                                   torch.float32, key)[0]
+    del calls
+    ts = [t0] + rec.t
+    head = "model." if rowwise else ""
+    full = {n[len(head):]: getattr(g, "full_tensor", lambda: g)()
+            for n, g in grads[0].items()}
+    state = {n[len(head):]: getattr(v, "full_tensor", lambda: v)()
+             for n, v in trainer.model.state_dict().items()}
+    return {"metrics": rec.metrics,
+            "step_ms": [1e3 * (b - a) for a, b in zip(ts, ts[1:])],
+            "grads": {n: g.cpu() for n, g in full.items()},
+            "matched": _matched(*outputs[0]),
+            "state": {n: v.cpu() for n, v in state.items()},
+            "counts": counts, "collectives": dict(collectives.counts),
+            "plans": {f"B{k[0]} Lq{k[1]} Len_v{k[2]} {k[3]}": brief(p)
+                      for k, p in plans.items()},
+            "peak_gib": peak_gib, "msda_errs": msda_errs,
+            "rows": int(shard_batch(images, trainer.mesh).shape[0])}
+
+
+def parallel_raft_run(device, **trainer_kwargs):
+    """RAFT (hidden 128, 4 levels, float32, BatchNorm in train mode) one
+    step through ``Trainer.fit`` on 2 textured pairs at 368 x 496, 12
+    iterations: its metrics and the cnet's running statistics after it."""
+    from aloception_tpu_torch.models.raft import raft, raft_sequence_loss
+    from aloception_tpu_torch.train import Data2RAFT, Trainer
+    from aloception_tpu_torch.train.trainer import to_device
+
+    batch = Data2RAFT(sample=True).prepare_batch(
+        [shifted_pairs(2, PARALLEL_RAFT_HW, 100)[i] for i in range(2)])
+    batch = {"inputs": to_device(batch["inputs"], device),
+             "targets": to_device(batch["targets"], device)}
+    model = raft(device="cpu", generator=torch.Generator().manual_seed(101)
+                 ).to(device).train()
+    rec = _StepRecorder()
+    trainer = Trainer(
+        model, lambda flows, t: raft_sequence_loss(flows, t["flow"],
+                                                   t["valid"]),
+        prepare_batch=lambda raw, training=True: batch,
+        forward_kwargs={"iters": RAFT_ITERS}, callbacks=[rec],
+        log_dir=os.path.join(PARALLEL_DIR, "expe"), project="parallel",
+        expe_name="raft", run_id="raft", grad_clip=1.0, **trainer_kwargs)
+    _reset_counts()
+    trainer.fit([None], max_steps=1)
+    return {"metrics": rec.metrics[0], "counts": _counts(),
+            "stats": {n: b.detach().cpu() for n, b in
+                      trainer.model.named_buffers()
+                      if n.endswith(("running_mean", "running_var"))}}
+
+
+def _card_rank(rank, n, what):
+    """A rank of ``parallel_phase`` (``parallel.dryrun.spawn``): the runs
+    ``what`` names, on the card it bound."""
+    from aloception_tpu_torch.parallel import make_mesh
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if PARALLEL_DEVICE == "cuda" else torch.device(PARALLEL_DEVICE)
+    out = {}
+    if "ddp" in what:
+        out["ddp"] = parallel_deformable_run(device, f"ddp{n}")
+        torch.cuda.empty_cache()
+    if "sp" in what:
+        out["sp"] = parallel_deformable_run(device, "sp", count_ops=True,
+                                            mesh=make_mesh(sp=n))
+        torch.cuda.empty_cache()
+    if "fsdp" in what:
+        out["fsdp"] = parallel_deformable_run(device, "fsdp", fsdp=True)
+        torch.cuda.empty_cache()
+
+    if "raft" in what:
+        out["raft"] = parallel_raft_run(device)
+    return out
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+# parameters after the steps: the share of elements that may stand beyond
+# 1e-5 * max(1, max|p|) of the one-process run's. AdamW moves an element by
+# lr * m / (sqrt(v) + 1e-8): where the gradient is within float32 noise of
+# 0 (cuDNN's and the MSDA backward's atomics), two runs move it by up to lr
+# a step in opposite directions: 664 of the 41.75 M elements for one
+# process run twice, 2 for the DDP ranks against row by row, on an H100
+# after 2 steps (scripts/parallel_phase.py)
+PARALLEL_PARAM_SHARE = 1e-4
+
+
+def _updated_within(got, want):
+    """(count of elements beyond 1e-5 * max(1, max|p|) of ``want``, of all,
+    the largest |diff|), over the floating tensors of two state dicts."""
+    beyond, worst, total = 0, 0.0, 0
+    for n, w in want.items():
+        if not w.is_floating_point():
+            continue
+        gap = (got[n].float() - w.float()).abs()
+        tol = 1e-5 * max(1.0, w.abs().max().item())
+        beyond += int((gap > tol).sum())
+        worst = max(worst, gap.max().item())
+        total += w.numel()
+    return beyond, total, worst
+
+
+# the parallel gate's tolerances against one process of the same numerics
+# (``_RowWise`` for bs1 ranks, the batched step otherwise): losses 1e-4
+# relative, gradients 1e-3 of max|g|, and the tensors that feed the
+# sampling locations alone (the sampling offsets, the decoder's
+# reference-point projection: a point that rounding moves across a cell
+# border changes its location gradient by O(1)) by L2 at 1e-2
+PARALLEL_GRAD_TOL, PARALLEL_LOCATION_L2_TOL = 1e-3, 1e-2
+
+LOCATION_TENSORS = ("sampling_offsets", "transformer.reference_points")
+
+
+def _grad_errors(got, want):
+    """(largest max|gap| / max|g| over the tensors that do not feed the
+    sampling locations, its tensor; largest ||gap||_2 / ||g||_2 over those
+    that do, its tensor)."""
+    dense, loc = (0.0, None), (0.0, None)
+    for n, w in want.items():
+        gap = got[n] - w
+        if any(t in n for t in LOCATION_TENSORS):
+            e = (gap.norm() / w.norm().clamp(min=1e-30)).item()
+            loc = max(loc, (e, n), key=lambda x: x[0])
+        else:
+            e = (gap.abs().max() / w.abs().max().clamp(min=1e-30)).item()
+            dense = max(dense, (e, n), key=lambda x: x[0])
+    return dense, loc
+
+
+def _gate_against(got, want, tag, rows=None, hold=True):
+    """A run against a one-process run: the losses of each step to 1e-4
+    relative; the first step's gradients by ``_grad_errors`` (1e-3 of
+    max|g|, the location tensors by L2 at 1e-2); its matched queries (of
+    ``rows`` of the reference) equal; the parameters after the steps within
+    1e-5 * max(1, max|p|) but for PARALLEL_PARAM_SHARE of them, and all
+    within 2 * lr a step (lr 1e-4, the Trainer's). ``hold`` False: printed
+    only."""
+    per_step = [max(_rel(got["metrics"][i][k], want["metrics"][i][k])
+                    for k in want["metrics"][i])
+                for i in range(PARALLEL_STEPS)]
+    dense, loc = _grad_errors(got["grads"], want["grads"])
+    ref = want["matched"] if rows is None else want["matched"][:, rows]
+    same = torch.equal(got["matched"], ref)
+    beyond, total, worst = _updated_within(got["state"], want["state"])
+    print(f"  {tag}: losses of each step "
+          f"{', '.join(f'{e:.3e}' for e in per_step)} (tol 1e-4), "
+          f"gradients {dense[0]:.3e} of max|g| (tol {PARALLEL_GRAD_TOL:.0e};"
+          f" {dense[1]}), the location tensors {loc[0]:.3e} of L2 (tol "
+          f"{PARALLEL_LOCATION_L2_TOL:.0e}; {loc[1]}), matched queries "
+          f"equal: {same}; parameters after {PARALLEL_STEPS} steps: {beyond}"
+          f" of {total} beyond 1e-5 * max(1, max|p|) (share "
+          f"{beyond / total:.2e}, tol {PARALLEL_PARAM_SHARE:.0e}), max|diff| "
+          f"{worst:.3e} (tol {2e-4 * PARALLEL_STEPS:.0e})"
+          f"{'' if hold else '; printed, not held'}")
+    if hold and not (max(per_step) <= 1e-4 and same
+                     and dense[0] <= PARALLEL_GRAD_TOL
+                     and loc[0] <= PARALLEL_LOCATION_L2_TOL
+                     and beyond <= PARALLEL_PARAM_SHARE * total
+                     and worst <= 2e-4 * PARALLEL_STEPS):
+        raise AssertionError(f"{tag} disagrees with the one-process step")
+    return dict(loss_err=max(per_step), grad_err=dense[0],
+                location_l2_err=loc[0], params_beyond=beyond,
+                params_share=beyond / total, params_max_diff=worst)
+
+
+def parallel_phase(device):
+    """parallel/ on the card: (a) two ranks on the one H100 over gloo with
+    CUDA tensors: Deformable-DETR-R50-refine at full width (float32, TF32
+    off, dropout 0), 2 DDP ``Trainer.fit`` steps of bs1 a rank through
+    ``init_multihost``, then one sequence-parallel (sp 2) run of both rows,
+    whose MSDA kernel runs at Lq / 2 encoder queries, and RAFT (hidden 128,
+    4 levels) one DDP step of bs1 a rank at 368 x 496, each against one
+    process stepping the global bs2 batch; (b) a world of one on NCCL: the
+    same Deformable steps under a mesh of one (DDP) and under FSDP against
+    the unwrapped steps; (c) ``parallel.dryrun`` on 8 CPU gloo ranks at tiny
+    widths (FSDP, TP, SP and PP, with the checks that the sharding is real).
+    Prints the step ms, peak GiB and kernel counts of each; returns what the
+    JSON line carries."""
+    from aloception_tpu_torch.parallel import dryrun
+
+    t_phase = time.perf_counter()
+    one = parallel_deformable_run(device, "one")
+    # the same step again: what two runs of one process part by (cuDNN's
+    # and the MSDA backward's atomics sum in a run's own order)
+    again = parallel_deformable_run(device, "again")
+    out_floor = _gate_against(again, one, "one process twice", hold=False)
+    rows = parallel_deformable_run(device, "rows", rowwise=True)
+    one_raft = parallel_raft_run(device)
+    torch.cuda.empty_cache()
+    print(f"parallel: one process, Deformable-DETR-R50-refine fp32 bs2 "
+          f"{TRAIN_SIZE}: step ms {[round(t, 1) for t in one['step_ms']]}, "
+          f"peak {one['peak_gib']:.2f} GiB, counts (msda launches, backward "
+          f"passes, hungarian) {one['counts']}")
+
+    t0 = time.perf_counter()
+    # the ranks prepare the batch on the host with this process's threads:
+    # a CPU reduction in other threads rounds otherwise, and the steps part
+    # by that alone (2.8e-5 of the loss, 7e-3 of a gradient, on an H100)
+    threads = torch.get_num_threads()
+    ranks = dryrun.spawn(2, _card_rank, ("ddp", "sp", "raft"), timeout=400,
+                         device=PARALLEL_DEVICE, backend="gloo",
+                         threads=threads)
+    a_s = time.perf_counter() - t0
+    print(f"parallel (a): 2 ranks on one card over gloo, {a_s:.1f} s")
+    out = {"a_seconds": a_s, "floor": out_floor}
+    for tag in ("ddp", "sp"):
+        for r, res in enumerate(ranks):
+            got = res[tag]
+            print(f"  {tag} rank {r}: {got['rows']} rows, step ms "
+                  f"{[round(t, 1) for t in got['step_ms']]}, peak "
+                  f"{got['peak_gib']:.2f} GiB, counts {got['counts']}, "
+                  f"collectives {got['collectives']}, msda plans "
+                  f"{got['plans']}")
+            if got["counts"][0] != MSDA_CALLS_PER_FORWARD * PARALLEL_STEPS \
+                    or got["counts"][2] != PARALLEL_STEPS:
+                raise AssertionError(f"{tag} rank {r}: kernel counts "
+                                     f"{got['counts']}")
+            if tag == "ddp":
+                # against one process of the ranks' bs1 numerics, held;
+                # against the batched bs2 step, printed
+                out[f"ddp_gate_rank{r}"] = _gate_against(
+                    got, rows, f"ddp rank {r} vs row by row", rows=[r])
+                out[f"ddp_batched_rank{r}"] = _gate_against(
+                    got, one, f"ddp rank {r} vs batched", rows=[r],
+                    hold=False)
+            else:
+                out[f"sp_gate_rank{r}"] = _gate_against(
+                    got, one, f"sp rank {r} vs batched")
+        # the ranks' parameters after the steps: one model, bit for bit
+        r0, r1 = (res[tag]["state"] for res in ranks)
+        if any(not torch.equal(r0[k], r1[k]) for k in r0):
+            raise AssertionError(f"{tag}: the ranks' parameters differ")
+        out[f"{tag}_step_ms"] = [res[tag]["step_ms"] for res in ranks]
+        out[f"{tag}_collectives"] = ranks[0][tag]["collectives"]
+        out[f"{tag}_peak_gib"] = [res[tag]["peak_gib"] for res in ranks]
+    sp_plans = ranks[0]["sp"]["plans"]
+    # the encoder's calls: Lq = Len_v; under sp 2 each rank's Lq is half
+    enc = max(int(k.split()[1][2:]) for k in one["plans"]
+              if k.split()[1][2:] == k.split()[2][5:])
+    if not any(f"Lq{-(-enc // 2)} Len_v{enc} " in k for k in sp_plans):
+        raise AssertionError(f"sp: no MSDA launch at Lq {enc} / 2: "
+                             f"{sp_plans}")
+    out["sp_plans"] = sp_plans
+    # the kernel against the plain version on each run's own inputs (the
+    # largest error over the ranks)
+    msda_errs = {}
+    for res in [one, again, rows] + [r[t] for r in ranks
+                                     for t in ("ddp", "sp")]:
+        for k, v in res["msda_errs"].items():
+            msda_errs[k] = max(v, msda_errs.get(k, 0.0))
+    if not any(k.startswith("parallel sp ")
+               and f" Lq{-(-enc // 2)} Len_v{enc}/" in k for k in msda_errs):
+        raise AssertionError(f"sp: the Lq {enc} / 2 call was not held "
+                             f"against the plain version: {msda_errs}")
+    stats_err = max((res["raft"]["stats"][n] - w).abs().max().item()
+                    for res in ranks for n, w in one_raft["stats"].items())
+    raft_loss = max(_rel(res["raft"]["metrics"][k], w) for res in ranks
+                    for k, w in one_raft["metrics"].items())
+    print(f"  raft ddp: metrics {raft_loss:.3e} (tol 1e-4), cnet running "
+          f"statistics max|diff| {stats_err:.3e} (tol 1e-5) over "
+          f"{len(one_raft['stats'])} buffers")
+    if not (stats_err <= 1e-5 and raft_loss <= 1e-4):
+        raise AssertionError("raft ddp disagrees with the global batch")
+    out.update(raft_stats_err=stats_err, raft_loss_err=raft_loss)
+
+    t0 = time.perf_counter()
+    world1, = dryrun.spawn(1, _card_rank, ("ddp", "fsdp"), timeout=300,
+                           device=PARALLEL_DEVICE, threads=threads)
+    b_s = time.perf_counter() - t0
+    print(f"parallel (b): a world of one on NCCL, {b_s:.1f} s; unwrapped "
+          f"step ms {[round(t, 1) for t in one['step_ms']]}")
+    for tag in ("ddp", "fsdp"):
+        got = world1[tag]
+        print(f"  {tag}: step ms {[round(t, 1) for t in got['step_ms']]}, "
+              f"peak {got['peak_gib']:.2f} GiB, counts {got['counts']}, "
+              f"collectives {got['collectives']}")
+        if got["counts"][0] != MSDA_CALLS_PER_FORWARD * PARALLEL_STEPS:
+            raise AssertionError(f"world of one {tag}: counts "
+                                 f"{got['counts']}")
+        out[f"world1_{tag}_gate"] = _gate_against(got, one,
+                                                  f"world of one {tag}")
+        out[f"world1_{tag}_step_ms"] = got["step_ms"]
+        msda_errs.update(got["msda_errs"])
+    for k, v in msda_errs.items():
+        print(f"  msda {k}: max|kernel-plain|={v:.3e} (tol 1e-05) on the "
+              "run's own inputs")
+    out["msda_errs"] = msda_errs
+    out["unwrapped_step_ms"] = one["step_ms"]
+    out["b_seconds"] = b_s
+
+    print("parallel (c): parallel.dryrun on 8 CPU gloo ranks at tiny widths "
+          "(FSDP, TP and SP over gloo and the pipeline, checked as the JAX "
+          "dry run checks them; the card's gloo is left to (a))")
+    t0 = time.perf_counter()
+    lines = dryrun.dryrun(8)
+    for line in lines:
+        print(f"  {line}")
+    out["c_seconds"] = time.perf_counter() - t0
+    out["dryrun"] = lines
+    launches = {"parallel_ddp": sum(r["ddp"]["counts"][0] for r in ranks),
+                "parallel_sp": sum(r["sp"]["counts"][0] for r in ranks),
+                "parallel_world1_ddp": world1["ddp"]["counts"][0],
+                "parallel_world1_fsdp": world1["fsdp"]["counts"][0]}
+    backward = {"parallel_ddp": sum(r["ddp"]["counts"][1] for r in ranks),
+                "parallel_sp": sum(r["sp"]["counts"][1] for r in ranks),
+                "parallel_world1_ddp": world1["ddp"]["counts"][1],
+                "parallel_world1_fsdp": world1["fsdp"]["counts"][1]}
+    hung = {"parallel_ddp": sum(r["ddp"]["counts"][2] for r in ranks),
+            "parallel_sp": sum(r["sp"]["counts"][2] for r in ranks),
+            "parallel_world1_ddp": world1["ddp"]["counts"][2],
+            "parallel_world1_fsdp": world1["fsdp"]["counts"][2]}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"parallel phase {out['seconds']:.1f} s; msda launches {launches}, "
+          f"backward passes {backward}, hungarian {hung}; {_smi()}")
+    return out, launches, backward, hung
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: "
@@ -5541,6 +6036,8 @@ def main():
     crowd = tracking["crowd_human"]["launches"]
     tracking_msda = {"crowd_human_train": crowd["msda"],
                      "mot17_frame": tracking["mot17"]["msda_launches"]}
+    torch.cuda.empty_cache()
+    parallel, par_msda, par_backward, par_hung = parallel_phase(device)
     ms_train = coco["train"]["launches"]
     coco_msda = {"multiscale_train": ms_train[0],
                  "multiscale_eval": coco["eval"]["msda_launches"],
@@ -5570,28 +6067,33 @@ def main():
         "replaces": "aloception_tpu/ops/pallas/ms_deform_attn_kernel.py:245",
         "launches": launches + frame_launches + msda_train
         + sum(pan_msda.values()) + export_msda + sum(coco_msda.values())
-        + sum(bf16_msda.values()) + sum(tracking_msda.values()),
+        + sum(bf16_msda.values()) + sum(tracking_msda.values())
+        + sum(par_msda.values()),
         "launches_by_path": {"fused_preprocess": launches,
                              "frame": frame_launches,
                              "train": msda_train, **pan_msda,
                              # the AOTInductor package's requests
                              "export": export_msda, **coco_msda,
-                             **bf16_msda, **tracking_msda},
+                             **bf16_msda, **tracking_msda,
+                             # summed over the ranks of each run
+                             **par_msda},
         # the training path's backward: the gradient of the plain version,
         # recomputed by the operator's registered backward; the panoptic paths'
         # detector is frozen and takes none
         "backward_passes": msda_backward + pan_train["backward_passes"]
         + commands["backward_passes"] + ms_train[1]
-        + sum(bf16_backward.values()) + crowd["msda_backward"],
+        + sum(bf16_backward.values()) + crowd["msda_backward"]
+        + sum(par_backward.values()),
         "backward_passes_by_path": {
             "train": msda_backward,
             "panoptic_train": pan_train["backward_passes"],
             "panoptic_train_command": commands["backward_passes"],
             "multiscale_train": ms_train[1], **bf16_backward,
-            "crowd_human_train": crowd["msda_backward"]},
+            "crowd_human_train": crowd["msda_backward"], **par_backward},
         "max_abs_err": max(v for k, v in {
             **errs, **coco["bucket_errs"],
-            **tracking["mot17"]["msda_errs"]}.items() if "float32" in k),
+            **tracking["mot17"]["msda_errs"],
+            **parallel["msda_errs"]}.items() if "float32" in k),
         "max_abs_err_bf16": max(v for k, v in {**errs, **coco["bucket_errs"]
                                                }.items() if "bfloat16" in k),
         # the largest multi-scale bucket's fp32 encoder call
@@ -5622,12 +6124,14 @@ def main():
         # the JAX package's on-device JV (XLA loops, not a Pallas kernel)
         "replaces": "aloception_tpu/ops/hungarian.py:28",
         "launches": hung_train + detr_train["launches"] + hung_pan
-        + ms_train[2] + sum(bf16_hung.values()) + crowd["hungarian"],
+        + ms_train[2] + sum(bf16_hung.values()) + crowd["hungarian"]
+        + sum(par_hung.values()),
         "launches_by_path": {"train": hung_train,
                              "detr_train": detr_train["launches"],
                              "panoptic_train": hung_pan,
                              "multiscale_train": ms_train[2], **bf16_hung,
-                             "crowd_human_train": crowd["hungarian"]},
+                             "crowd_human_train": crowd["hungarian"],
+                             **par_hung},
         # the largest query-index difference from the plain version's
         # assignment, and the targets matched differently, as measured
         "max_abs_err": hung_diff["max_abs_err"],
@@ -5669,7 +6173,11 @@ def main():
         # MOT17, CrowdHuman and WoodScape on disk, the views and the
         # renderer: the CrowdHuman training and the MOT17 Frame path run
         # the MSDA (and Hungarian) kernels, counted above
-        "tracking_views_disk": tracking}))
+        "tracking_views_disk": tracking,
+        # parallel/: two ranks on the card over gloo (DDP, sequence
+        # parallel: the sp plans are the MSDA launches at Lq / 2), a world
+        # of one on NCCL (DDP, FSDP), the 8-rank CPU dry run
+        "parallel": parallel}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

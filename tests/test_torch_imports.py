@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no module of ``aloception_tpu_torch``
 imports jax, flax, optax, orbax, the JAX package, OpenCV (which the card
 machine lacks) or scipy (the port keeps its own assignment solver), directly
-or inside a function; ``chip_smoke.py`` imports no jax, flax or JAX package
-(scipy is its Hungarian oracle)."""
+or inside a function; ``chip_smoke.py`` and the multi-rank tests' rank
+worker (``tests/torch_ranks.py``) import no jax, flax or JAX package (scipy
+is ``chip_smoke.py``'s Hungarian oracle)."""
 
 import ast
 from pathlib import Path
@@ -131,6 +132,23 @@ def test_tracking_views_modules_are_checked(module):
     checked below; the glyph table the text draws from is in the port."""
     assert PKG / module in SOURCES
     assert (PKG / "aloscene" / "renderer" / "glyphs.npz").exists()
+
+
+@pytest.mark.parametrize("module", [
+    "parallel/__init__.py", "parallel/distributed.py", "parallel/mesh.py",
+    "parallel/shard.py", "parallel/pipeline.py", "parallel/dryrun.py"])
+def test_parallel_modules_are_checked(module):
+    """The parallel package's modules are among the sources checked
+    below."""
+    assert PKG / module in SOURCES
+
+
+def test_rank_worker_imports_no_jax():
+    """What the multi-rank tests' ranks run (``tests/torch_ranks.py``)
+    imports the port alone, as the card's ranks do."""
+    path = ROOT / "tests" / "torch_ranks.py"
+    roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))
+    assert not roots & set(FORBIDDEN), roots & set(FORBIDDEN)
 
 
 @pytest.mark.parametrize("child", ["points2d", "cam_intrinsic"])

@@ -6,8 +6,9 @@ all-iterations path): loss, metrics, every gradient and the running
 statistics after it, against ``jax.value_and_grad`` with
 ``mutable=["batch_stats"]``; the FlyingChairs2 sample and the sign of its
 flow (read with ``ops.warp``); ``Data2RAFT`` batches; the OneCycle learning
-rates of ``make_raft_trainer`` against the JAX schedule; and the EPE falling
-on a repeated batch through the trainer's step.
+rates of ``make_raft_trainer`` against the JAX schedule (the EPE falling
+on a repeated batch through the trainer's step:
+``test_torch_raft_overfit.py``).
 
 The port is NCHW, the JAX package NHWC. Variables are drawn as flax's init
 draws them (``init_like``), moved by noise (``perturb``) and loaded through
@@ -273,25 +274,3 @@ def test_onecycle_learning_rates_match_jax(tmp_path, monkeypatch):
             p.grad = torch.zeros_like(p)
         opt.step()
         rel(opt.adamw.param_groups[0]["lr"], schedule(k), 1e-7, str(k))
-
-
-def test_epe_falls_on_a_repeated_batch(tmp_path, monkeypatch):
-    """Eight steps of ``make_raft_trainer``'s train step (AdamW lr 4e-4,
-    clip 1.0, 3 iterations) on one chairs batch: the EPE falls and the
-    cnet's running statistics move."""
-    from aloception_tpu_torch.train import (Data2RAFT, experiment,
-                                            make_raft_trainer)
-    monkeypatch.setattr(experiment, "CONFIG_PATH",
-                        str(tmp_path / "alonet_config.json"))
-    dm = Data2RAFT(sample=True, batch_size=2)
-    model = tiny_raft(1)
-    trainer = make_raft_trainer(model=model, data_module=dm, iters=3,
-                                log_dir=str(tmp_path))
-    batch = dm.prepare_batch([dm.train_dataset[i] for i in (0, 5)])
-    before = model.cnet.norm1.running_var.clone()
-    epes = []
-    for _ in range(8):
-        keys, packed = trainer.train_step(batch["inputs"], batch["targets"])
-        epes.append(dict(zip(keys, packed.tolist()))["epe"])
-    assert epes[-1] < epes[0], epes
-    assert not torch.equal(model.cnet.norm1.running_var, before)

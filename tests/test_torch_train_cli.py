@@ -66,14 +66,15 @@ def test_raft_train_then_eval_from_checkpoint(tmp_path, capsys):
     assert "[eval_on_sintel] EPE=" in out and math.isfinite(epe)
 
 
-@pytest.mark.parametrize("flags", [["--multihost"],
-                                   ["--steps_per_dispatch", "4"],
-                                   ["--log", "tensorboard", "--multihost"],
-                                   []])
+@pytest.mark.parametrize("flags", [
+    ["--multihost", "--steps_per_dispatch", "2"],
+    ["--steps_per_dispatch", "4"],
+    ["--log", "tensorboard", "--steps_per_dispatch", "4"], []])
 def test_train_on_chairs_refuses_what_is_not_ported(flags, tmp_path,
                                                     monkeypatch):
-    """Flags of later ROADMAP items, beside ported ones too (``--log``),
-    raise. With no flag the command reads FlyingChairs2 from disk: it
+    """The flag the port does not take (the TPU's scan-blocked dispatch,
+    ROADMAP A12), beside ported ones too (``--log``, ``--multihost``:
+    ``tests/test_torch_parallel.py``), raises. With no flag the command reads FlyingChairs2 from disk: it
     refuses only a dataset directory that the config does not name
     (FileNotFoundError), and trains on the one it names."""
     if flags:

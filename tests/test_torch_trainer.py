@@ -1,7 +1,8 @@
 """The PyTorch port's Trainer on the CPU, replaying the semantics of
 ``tests/test_trainer.py`` on a tiny DETR: fit with checkpointing and
 validation, resume continuing, best/last pruning, frozen BatchNorm never
-updating, the loss falling on a repeated batch, ``pick_bucket``; the
+updating, ``pick_bucket`` (the loss falling on a repeated batch:
+``test_torch_trainer_overfit.py``); the
 ``train_on_coco`` command for both detectors; and the synthetic COCO sample,
 frame for frame against the JAX package's. The JAX package's scan-blocked
 dispatch (``steps_per_dispatch``) is not ported."""
@@ -109,39 +110,6 @@ def test_frozen_bn_never_updates(tmp_path):
     assert any(not torch.equal(a, p) for a, p in zip(before, backbone))
 
 
-def test_loss_falls_on_a_repeated_batch():
-    """~40 float32 steps on a 2-box scene cut the loss by more than 40 %
-    and leave the two matched queries predicting distinct boxes."""
-    from aloception_tpu_torch.models.detr.criterion import detr_criterion
-    from aloception_tpu_torch.models.detr.matcher import hungarian_match
-    from aloception_tpu_torch.train import TrainOptimizer, make_detr_train_step
-
-    H = W = 64
-    img = np.full((1, H, W, 3), 0.4, np.float32)
-    img[0, 8:24, 4:28] = [0.9, 0.1, 0.1]
-    img[0, 40:60, 36:60] = [0.1, 0.2, 0.9]
-    targets = {"boxes": torch.tensor([[[16 / W, 16 / H, 24 / W, 16 / H],
-                                       [48 / W, 50 / H, 24 / W, 20 / H]]]),
-               "labels": torch.tensor([[0, 2]]),
-               "valid": torch.tensor([[True, True]])}
-    model = tiny_detr(4, dropout=0.0)
-    opt = TrainOptimizer(model, lr=1e-3, lr_backbone=1e-3, grad_clip=0.1)
-    step = make_detr_train_step(model, opt, detr_criterion)
-    images, mask = torch.from_numpy(img), torch.zeros(1, H, W)
-    losses = []
-    for _ in range(41):
-        keys, packed = step(images, mask, targets)
-        losses.append(dict(zip(keys, packed.tolist()))["loss_total"])
-    assert losses[-1] < 0.6 * losses[0], losses
-    model.eval()
-    with torch.no_grad():
-        out = model(images, mask)
-    (q0, q1), = hungarian_match(out, targets)[0].tolist()
-    assert q0 != q1
-    b0, b1 = out["pred_boxes"][0, q0], out["pred_boxes"][0, q1]
-    assert (b0 - b1).abs().sum() > 0.1
-
-
 def test_pick_bucket_covers_every_shape():
     from aloception_tpu_torch.train.data_modules import MULTISCALE_BUCKETS
     rng = np.random.RandomState(0)
@@ -170,13 +138,15 @@ def test_train_on_coco_command(model, tmp_path):
     assert all(p.device.type == "cpu" for p in trainer.model.parameters())
 
 
-@pytest.mark.parametrize("flags", [["--log", "tensorboard", "--tp", "2"],
-                                   ["--bf16", "--multihost"],
-                                   ["--tp", "2"], ["--multihost"]])
+@pytest.mark.parametrize("flags", [
+    ["--log", "tensorboard", "--steps_per_dispatch", "4"],
+    ["--bf16", "--multihost", "--steps_per_dispatch", "2"],
+    ["--tp", "2", "--steps_per_dispatch", "4"], ["--steps_per_dispatch", "4"]])
 def test_train_on_coco_refuses_what_is_not_ported(flags, tmp_path):
-    """Flags of later ROADMAP items raise, beside ported ones too
-    (``--multiscale``, COCO on disk, ``--bf16`` and ``--log`` are ported:
-    ``tests/test_torch_train_cli.py``)."""
+    """The flag the port does not take (the TPU's scan-blocked dispatch,
+    ROADMAP A12) raises, beside ported ones too (``--multiscale``, COCO on
+    disk, ``--bf16`` and ``--log``: ``tests/test_torch_train_cli.py``;
+    ``--tp`` and ``--multihost``: ``tests/test_torch_parallel.py``)."""
     from aloception_tpu_torch.commands.train_on_coco import main
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["--cpu", "--tiny", "--sample", *flags,
