@@ -20,7 +20,12 @@ and without ``--cpu`` it raises. Without ``--sample`` it reads COCO's
 ``~/.aloception_tpu/alodataset_config.json`` names under "coco".
 ``--multiscale`` (a flag the JAX command lacks) resizes to a shorter side of
 800, longer at most 1333, and pads each batch to its multi-scale bucket,
-instead of resizing to ``--size``. Without ``--weights``,
+instead of resizing to ``--size``. ``--weights`` takes a registry name
+(``detr-r50``, ``deformable-detr-r50[-refinement]``, ``detr-r50-panoptic``:
+the published file dropped into ``~/.aloception_tpu/weights``) or a path;
+the reference publishes no Deformable panoptic checkpoint, so
+``--model panoptic_deformable --weights <name>`` exits (a path still
+loads). Without ``--weights``,
 ``--ckpt_dir`` or ``--run_id`` the weights are random, from a seeded
 generator.
 """
@@ -28,6 +33,7 @@ generator.
 from __future__ import annotations
 
 import argparse
+import os
 
 # the --tiny models' widths and depths, the JAX command's
 TINY = dict(hidden_dim=64, num_queries=20, nheads=4, num_encoder_layers=2,
@@ -60,8 +66,10 @@ def main(argv=None):
     p.add_argument("--best", action="store_true",
                    help="with --ckpt_dir: the best checkpoint, not the last")
     p.add_argument("--weights", default=None,
-                   help="path of a local state_dict under the reference "
-                        "names (e.g. detr-r50-panoptic.pth); nothing is "
+                   help="a registry name (utils.weights.WEIGHT_REGISTRY, "
+                        "e.g. detr-r50: the file under "
+                        "~/.aloception_tpu/weights) or the path of a local "
+                        "state_dict under the reference names; nothing is "
                         "fetched")
     p.add_argument("--threshold", type=float, default=0.0)
     p.add_argument("--limit_batches", type=int, default=None)
@@ -133,8 +141,13 @@ def main(argv=None):
                                   background_class=n_cls)
 
     if args.weights:
-        from aloception_tpu_torch.utils.weights import load_state_dict_file
-        model.load_state_dict(load_state_dict_file(args.weights))
+        if args.model == "panoptic_deformable" \
+                and not os.path.exists(args.weights):
+            # a registry name: a local state_dict of one's own still loads
+            raise SystemExit("--weights: the reference publishes no "
+                             "deformable-panoptic checkpoint")
+        from aloception_tpu_torch.utils.weights import load_weights
+        load_weights(model, args.weights)
         print(f"[eval] loaded weights {args.weights}")
     elif args.ckpt_dir:
         from aloception_tpu_torch.train import CheckpointManager

@@ -4,7 +4,7 @@
 Examples
 --------
 python -m aloception_tpu_torch.commands.eval_on_sintel --cpu --sample --tiny --limit_samples 2
-python -m aloception_tpu_torch.commands.eval_on_sintel --weights raft-things.pth
+python -m aloception_tpu_torch.commands.eval_on_sintel --weights raft-things
 
 Reads the clean pass of Sintel's ``training/`` folder from the directory
 that the dataset config (``~/.aloception_tpu/alodataset_config.json``, key
@@ -13,9 +13,11 @@ reads the offline synthetic sample instead. Each pair of frames goes Frame
 -> ``norm_minmax_sym`` -> ``Padder`` (to a multiple of 8) -> RAFT
 (``only_last``) -> ``unpad``, and its EPE is the mean over pixels of the
 flow's distance to the ground truth. Runs on the CUDA card, or on the CPU
-with ``--cpu``; without a card and without ``--cpu`` it raises. Without
-``--weights`` or ``--ckpt_dir`` the weights are random, from a seeded
-generator.
+with ``--cpu``; without a card and without ``--cpu`` it raises.
+``--weights`` takes a registry name (``raft-things``, ``raft-chairs``,
+``raft-sintel``, ``raft-kitti``, ``raft-small``: the published file dropped
+into ``~/.aloception_tpu/weights``) or a path. Without ``--weights`` or
+``--ckpt_dir`` the weights are random, from a seeded generator.
 """
 
 from __future__ import annotations
@@ -36,8 +38,9 @@ def main(argv=None) -> float:
                    help="restore the model of a checkpoint saved by the "
                         "port's trainer")
     p.add_argument("--weights", default=None,
-                   help="path of a local reference RAFT state_dict (e.g. "
-                        "raft-things.pth); nothing is fetched")
+                   help="a registry name (e.g. raft-things: the file under "
+                        "~/.aloception_tpu/weights) or the path of a local "
+                        "reference RAFT state_dict; nothing is fetched")
     p.add_argument("--best", action="store_true",
                    help="with --ckpt_dir: the best checkpoint, not the last")
     p.add_argument("--limit_samples", type=int, default=None)
@@ -57,8 +60,8 @@ def main(argv=None) -> float:
     else:
         model = (raft_small if args.small else raft)(device=device)
     if args.weights:
-        from aloception_tpu_torch.utils.weights import load_state_dict_file
-        model.load_state_dict(load_state_dict_file(args.weights))
+        from aloception_tpu_torch.utils.weights import load_weights
+        load_weights(model, args.weights)
         print(f"[eval] loaded weights {args.weights}")
     elif args.ckpt_dir:
         from aloception_tpu_torch.train import CheckpointManager

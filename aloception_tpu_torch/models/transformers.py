@@ -63,26 +63,50 @@ class GroupNorm(nn.GroupNorm):
         return super().forward(x.to(self.weight.dtype)).to(x.dtype)
 
 
-def cast_for_training(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+@torch.no_grad()
+def set_data_(p: nn.Parameter, value: torch.Tensor) -> nn.Parameter:
+    """Make ``value`` (of any dtype) the data of the parameter ``p``, the
+    same object. A DTensor parameter is swapped whole: its ``.data`` would
+    change its dtype and leave its local tensor as it was."""
+    if hasattr(p, "_local_tensor"):
+        torch.utils.swap_tensors(p, nn.Parameter(
+            value.detach(), requires_grad=p.requires_grad))
+    else:
+        p.data = value
+    return p
+
+
+def float32_kept(model: nn.Module) -> set:
+    """The ids of the parameters and buffers of ``model`` that
+    ``cast_for_training`` leaves in float32."""
+    kept = set()
+    for m in model.modules():
+        if isinstance(m, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)) \
+                or getattr(m, "keep_float32", False):
+            kept.update(id(x) for x in (*m.parameters(), *m.buffers()))
+    return kept
+
+
+def cast_for_training(model: nn.Module, dtype: torch.dtype,
+                      skip=()) -> nn.Module:
     """``model`` computing in ``dtype`` as flax computes a model built with
     ``dtype`` over float32 parameters: its parameters and buffers in
     ``dtype`` (a train step's optimizer keeps their float32 masters, see
     ``train.state.TrainOptimizer``), except what flax computes in float32:
     the norms (their statistics, scale and bias), and modules whose
     ``keep_float32`` is set (the frozen BatchNorm fold, Deformable-DETR's
-    reference-point projection), which are not rounded on the way. Returns
-    ``model``."""
-    kept = set()
-    for m in model.modules():
-        if isinstance(m, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)) \
-                or getattr(m, "keep_float32", False):
-            kept.update(id(x) for x in (*m.parameters(), *m.buffers()))
+    reference-point projection), which are not rounded on the way. The
+    parameters whose ids are in ``skip`` are left as they are (FSDP's
+    shards, which its mixed-precision policy casts where they are
+    gathered). Returns ``model``."""
+    kept = float32_kept(model)
+    skip = set(skip)
     with torch.no_grad():
         for m in model.modules():
             for p in m.parameters(recurse=False):
-                if p.is_floating_point():
-                    p.data = p.data.to(torch.float32 if id(p) in kept
-                                       else dtype)
+                if p.is_floating_point() and id(p) not in skip:
+                    set_data_(p, p.detach().to(torch.float32 if id(p) in kept
+                                               else dtype))
             for name, b in m.named_buffers(recurse=False):
                 if b.is_floating_point():
                     m._buffers[name] = b.to(torch.float32 if id(b) in kept

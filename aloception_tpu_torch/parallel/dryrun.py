@@ -15,13 +15,19 @@ sharding is real:
 3. sequence parallel (N divisible by 8): dp 2, sp 2, tp 2, the encoder's
    tokens split over sp; the loss within 1e-3 of pass 1's; then the same
    for a tiny Deformable-DETR (refine), whose MSDA samples for the rank's
-   Lq / sp queries;
-4. pipeline (N even): a stack of 4 DETR encoder layers as a pp 2 GPipe
+   Lq / sp queries, and FSDP on that mesh (each sp rank of a dp row holding
+   the same shards);
+4. bfloat16 under passes 1 and 2 (the model cast for the step over float32
+   masters placed as their parameters are: a tp parameter computes in
+   bfloat16 over a float32 master of its shard, FSDP's shards stay float32
+   and are gathered in bfloat16);
+5. pipeline (N even): a stack of 4 DETR encoder layers as a pp 2 GPipe
    pipeline, its forward within 1e-2 (relative) of the sequential stack's,
    its gradients finite.
 
 Every pass's loss is also held against the replicated step (the same model
-on the whole batch in one process). Collectives are counted by
+on the whole batch in one process, in the pass's precision): 1e-4
+relative in float32, ``BF16_LOSS_TOL`` in bfloat16. Collectives are counted by
 ``CommDebugMode`` (the c10d and functional collectives the step calls) and
 by a DDP communication hook. ``spawn`` is what the tests use to start their
 ranks: a rank that fails or hangs fails the run, and its traceback is
@@ -51,7 +57,13 @@ TINY_DETR = dict(num_classes=10, hidden_dim=64, num_queries=20, nheads=4,
 # padding (valid ratio 0, NaN reference points, in both packages)
 HW = (64, 96)
 N_TARGETS = 8
-PASSES = ("dp_tp", "fsdp", "sp", "sp_deformable")
+PASSES = ("dp_tp", "fsdp", "sp", "sp_deformable", "fsdp_sp", "dp_tp_bf16",
+          "fsdp_bf16")
+# a bfloat16 pass's metrics against the replicated bfloat16 step, relative:
+# the ranks sum partial products (tp) and rows (dp) in another order and
+# round them to bfloat16 there (measured: the losses equal, grad_norm up to
+# 6.4e-4 apart, on 8 CPU ranks)
+BF16_LOSS_TOL = 5e-3
 
 
 def _rank_main(rank: int, n: int, init_file: str, out_dir: str,
@@ -203,38 +215,39 @@ def _losses(keys, packed) -> Dict[str, float]:
     return dict(zip(keys, packed.tolist()))
 
 
-def replicated_step(make_model: Callable, criterion: Callable, batch: Dict
-                    ) -> Dict[str, float]:
+def replicated_step(make_model: Callable, criterion: Callable, batch: Dict,
+                    dtype: torch.dtype = torch.float32) -> Dict[str, float]:
     """One train step of the model on the whole batch in this process, no
-    mesh: the reference of every placement."""
+    mesh, computing in ``dtype``: the reference of every placement."""
     from ..train.state import TrainOptimizer
     from ..train.step import make_train_step
     model = make_model()
-    step = make_train_step(model, TrainOptimizer(model), criterion)
+    step = make_train_step(model, TrainOptimizer(model, dtype=dtype),
+                           criterion)
     return _losses(*step(*[batch[k] for k in ("inputs", "targets")]))
 
 
 def placed_step(make_model: Callable, criterion: Callable, batch: Dict,
-                tp: int = 1, sp: int = 1, fsdp: bool = False) -> Dict:
+                tp: int = 1, sp: int = 1, fsdp: bool = False,
+                dtype: torch.dtype = torch.float32) -> Dict:
     """One train step of the model as the Trainer places it on a mesh of
-    the world with this tp and sp: the global metrics and the checks that
-    the placement is real (this rank's rows, a tp and a dp parameter's
-    share of its elements, the collectives counted)."""
+    the world with this tp and sp, computing in ``dtype``: the global
+    metrics and the checks that the placement is real (this rank's rows, a
+    tp and a dp parameter's share of its elements, the collectives counted,
+    the dtypes of the parameters and of the optimizer's masters)."""
     from .mesh import axis_size, make_mesh, use_mesh
-    from .shard import data_parallel, shard_batch, sync_gradients
-    from .mesh import data_group
+    from .shard import data_parallel, shard_batch
     from ..train.state import TrainOptimizer
     from ..train.step import make_train_step
     mesh = make_mesh(tp=tp, sp=sp)
     model = make_model()
-    forward, sync = data_parallel(model, mesh, fsdp)
+    forward, after_backward = data_parallel(model, mesh, fsdp, dtype)
     count = CollectiveCount()
     if isinstance(forward, torch.nn.parallel.DistributedDataParallel):
         count.hook(forward)
-    opt = TrainOptimizer(model)
-    step = make_train_step(
-        forward, opt, criterion, after_backward=None if sync is None else
-        lambda: sync_gradients(sync, data_group(mesh)))
+    opt = TrainOptimizer(model, dtype=dtype)
+    step = make_train_step(forward, opt, criterion,
+                           after_backward=after_backward)
     inputs, targets = shard_batch((batch["inputs"], batch["targets"]), mesh)
     with use_mesh(mesh), count:
         keys, packed = step(inputs, targets)
@@ -246,7 +259,13 @@ def placed_step(make_model: Callable, criterion: Callable, batch: Dict,
         placements = [str(pl) for pl in getattr(p, "placements", ())]
         if placements:
             shares[name] = (local.numel() / p.numel(), placements)
+    masters = [(m, p) for m, p in zip(opt.masters, opt.params)]
     return {"metrics": _losses(keys, packed),
+            "dtypes": sorted({str(p.dtype) for p in model.parameters()}),
+            # (a master's dtype, whether it is placed, its parameter's) of
+            # each trainable parameter
+            "masters": sorted({(str(m.dtype), hasattr(m, "_local_tensor"),
+                                str(p.dtype)) for m, p in masters}),
             "rows": int(inputs[0].shape[0]),
             "dp": axis_size(mesh, "dp"), "sp": axis_size(mesh, "sp"),
             "tp": axis_size(mesh, "tp"),
@@ -272,22 +291,38 @@ def placement_passes(rank: int, n: int) -> Dict:
     dp = n // tp
     batch = detr_batch(dp * 2)
     sp = n % 8 == 0
-    # the references, on two ranks while the others wait
+    bf16 = torch.bfloat16
+    # the references, on three ranks while the others wait
     out = {"replicated": {
         "detr": replicated_step(_tiny_detr, detr_criterion, batch)
         if rank == 0 else None,
+        "detr_bf16": replicated_step(_tiny_detr, detr_criterion, batch, bf16)
+        if rank == 1 % n else None,
         "deformable": replicated_step(_tiny_deformable,
                                       deformable_criterion, batch)
         if sp and rank == n - 1 else None},
         "dp_tp": placed_step(_tiny_detr, detr_criterion, batch, tp=tp),
         "fsdp": placed_step(_tiny_detr, detr_criterion, batch, tp=tp,
-                            fsdp=True)}
+                            fsdp=True),
+        "dp_tp_bf16": placed_step(_tiny_detr, detr_criterion, batch, tp=tp,
+                                  dtype=bf16),
+        "fsdp_bf16": placed_step(_tiny_detr, detr_criterion, batch, tp=tp,
+                                 fsdp=True, dtype=bf16)}
     if sp:
         out["sp"] = placed_step(_tiny_detr, detr_criterion, batch, tp=2,
                                 sp=2)
         out["sp_deformable"] = placed_step(
             _tiny_deformable, deformable_criterion, batch, tp=2, sp=2)
+        out["fsdp_sp"] = placed_step(_tiny_detr, detr_criterion, batch,
+                                     tp=2, sp=2, fsdp=True)
     return out
+
+
+def pass_model(tag: str) -> str:
+    """The replicated step a pass is held against."""
+    if tag.endswith("deformable"):
+        return "deformable"
+    return "detr_bf16" if tag.endswith("bf16") else "detr"
 
 
 def encoder_stack(n_layers: int = 4, d: int = 64, heads: int = 4,
@@ -373,16 +408,26 @@ def check(results: List[Dict], pipe: List[Dict]) -> List[str]:
     for tag in PASSES:
         if tag not in results[0]:
             continue
-        model = "deformable" if tag.endswith("deformable") else "detr"
+        model = pass_model(tag)
         ref = results[0]["replicated"][model]["loss_total"]
+        tol = BF16_LOSS_TOL if tag.endswith("bf16") else 1e-4
         for r, res in enumerate(results):
             got = res[tag]
             loss = got["metrics"]["loss_total"]
             assert np.isfinite(loss), (tag, r, loss)
-            assert abs(loss - ref) <= 1e-4 * max(1.0, abs(ref)), \
+            assert abs(loss - ref) <= tol * max(1.0, abs(ref)), \
                 (tag, r, loss, ref)
             if model == "detr":
                 assert abs(loss - base["metrics"]["loss_total"]) < 1e-3
+            if tag.endswith("bf16"):
+                # bfloat16 compute over float32 masters, a tp master placed
+                # as its parameter; FSDP's shards float32, their own masters
+                assert "torch.bfloat16" in got["dtypes"], (tag, got)
+                assert all(m == "torch.float32" for m, _, _ in
+                           got["masters"]), (tag, got["masters"])
+                placed = ("torch.float32", True, "torch.float32"
+                          if tag.startswith("fsdp") else "torch.bfloat16")
+                assert placed in got["masters"], (tag, got["masters"])
             assert got["rows"] * got["dp"] == 2 * base["dp"], \
                 (tag, r, got["rows"])
             c = got["collectives"]
@@ -392,10 +437,10 @@ def check(results: List[Dict], pipe: List[Dict]) -> List[str]:
                 tp_share = [s for s, pl in got["shares"].values()
                             if len(pl) == 1 and s == 1 / got["tp"]]
                 assert tp_share, f"{tag}: no parameter holds 1/tp"
-            if tag == "fsdp":
+            if tag.startswith("fsdp"):
                 dp_share = [s for s, pl in got["shares"].values()
                             if s == 1 / got["dp"]]
-                assert dp_share, "fsdp: no parameter holds 1/dp"
+                assert dp_share, f"{tag}: no parameter holds 1/dp"
                 assert c.get("all_gather", 0) > 0, (r, c)
         c = results[0][tag]["collectives"]
         lines.append(

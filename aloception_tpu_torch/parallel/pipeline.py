@@ -72,17 +72,21 @@ def shard_layer_stack(stacked: Dict[str, torch.Tensor], mesh,
 
 def _shift(x: torch.Tensor, group, src, dst) -> torch.Tensor:
     """Send ``x`` to global rank ``dst`` and return what global rank
-    ``src`` sent (zeros where None)."""
-    out = torch.zeros_like(x)
+    ``src`` sent (zeros where None). Over gloo, whose send and receive take
+    host memory, a card's tensor goes through the host (ranks that share a
+    card run on gloo)."""
+    staged = x.is_cuda and dist.get_backend(group) == "gloo"
+    send = x.detach().cpu() if staged else x.contiguous()
+    out = torch.zeros_like(send)
     ops = []
     if dst is not None:
-        ops.append(dist.P2POp(dist.isend, x.contiguous(), dst, group))
+        ops.append(dist.P2POp(dist.isend, send, dst, group))
     if src is not None:
         ops.append(dist.P2POp(dist.irecv, out, src, group))
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
-    return out
+    return out.to(x.device) if staged else out
 
 
 class _PPermute(torch.autograd.Function):

@@ -10,12 +10,16 @@ each placement is made by hand over ``torch.distributed``:
 - ``partition_params``: tp places the wide Linears column-parallel as
   DTensors (``ColwiseParallel``, their outputs gathered after them, where
   XLA gathers them too); FSDP shards the parameters above
-  ``_FSDP_MIN_SIZE`` elements with ``fully_shard`` on the dim the rule
-  names and leaves the others whole (``ignored_params``), their gradients
-  averaged by ``sync_gradients``;
+  ``_FSDP_MIN_SIZE`` elements with ``fully_shard`` over dp on the dim the
+  rule names, at any sp (the sp ranks of one dp row hold the same shard),
+  and leaves the others whole (``ignored_params``), their gradients
+  averaged by ``sync_gradients``; a model that trains in bfloat16 keeps
+  its shards in float32, cast where they are gathered;
 - ``batch_count``: the criteria's denominators summed over dp, so that
-  DDP's mean of the ranks' gradients is the gradient of the global batch's
-  loss, as in the JAX package's one jit over the global batch;
+  the mean of the ranks' gradients over dp x sp (DDP's, or FSDP's
+  reduce-scatter over dp and the shards' mean over sp) is the gradient of
+  the global batch's loss, as in the JAX package's one jit over the global
+  batch;
 - ``constrain_tokens``: the encoders' sequence-parallel hook.
 """
 
@@ -152,7 +156,8 @@ def partition_specs(model: nn.Module, tp: int, dp: int = 1,
     return specs
 
 
-def partition_params(model: nn.Module, mesh, fsdp: bool = False
+def partition_params(model: nn.Module, mesh, fsdp: bool = False,
+                     dtype: torch.dtype = torch.float32
                      ) -> List[nn.Parameter]:
     """Place ``model``'s parameters over ``mesh`` by the rule, in place:
 
@@ -160,7 +165,19 @@ def partition_params(model: nn.Module, mesh, fsdp: bool = False
       column-parallel over the tp axis (``ColwiseParallel``, its output
       gathered back to every tp rank);
     - ``fsdp``: ``fully_shard`` over dp on the module tree, each parameter
-      of the rule on its dim, every other parameter left whole.
+      of the rule on its dim, every other parameter left whole. With sp > 1
+      each sp rank of a dp row holds the same shards (the JAX rule's
+      ``P("dp")`` on a mesh with an sp axis); the caller averages their
+      gradients over sp (``data_parallel``).
+
+    ``dtype``: the precision the model will train in
+    (``train.TrainOptimizer``). Under FSDP with a lower one the shards stay
+    float32, and are the optimizer's masters: a mixed-precision policy
+    casts them to ``dtype`` where they are gathered and widens their
+    gradients to float32 before the reduce-scatter. What
+    ``cast_for_training`` keeps in float32 (norms, the reference-point
+    projection) is then left whole, since the policy casts every shard of
+    the group.
 
     Returns the parameters that no ``fully_shard`` reduces, in the model's
     order (the same on every rank): the caller averages their gradients
@@ -173,6 +190,14 @@ def partition_params(model: nn.Module, mesh, fsdp: bool = False
                          "layer stacks, not the Trainer's")
     specs = partition_specs(model, shape["tp"], shape["dp"], fsdp)
     if shape["tp"] > 1:
+        if mesh.device_type == "cpu" and any(
+                p.is_cuda for p in model.parameters()):
+            # a gloo mesh (ranks that share a card): DTensor would move the
+            # tp Linears' inputs to the host, and its collectives over gloo
+            # on CUDA tensors end the process (torch 2.11)
+            raise NotImplementedError(
+                "tensor parallelism of a model on the card needs NCCL, one "
+                "card a rank; over gloo, place the model on the CPU")
         from torch.distributed.tensor import Replicate
         from torch.distributed.tensor.parallel import (ColwiseParallel,
                                                        parallelize_module)
@@ -184,14 +209,19 @@ def partition_params(model: nn.Module, mesh, fsdp: bool = False
             parallelize_module(model, mesh["tp"], plan)
     if not fsdp:
         return [p for p in model.parameters() if p.requires_grad]
-    if shape["sp"] > 1:
-        raise NotImplementedError("fsdp with sp > 1 is not supported: "
-                                  "FSDP shards over dp alone")
-    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
     from torch.distributed.tensor import Shard
     by_id = {id(p): specs.get(n) for n, p in model.named_parameters()}
     whole = {p for p in model.parameters()
              if not p.requires_grad or "dp" not in (by_id.get(id(p)) or ())}
+    policy = MixedPrecisionPolicy()
+    if dtype != torch.float32:
+        from ..models.transformers import float32_kept
+        kept = float32_kept(model)
+        whole |= {p for p in model.parameters() if id(p) in kept}
+        policy = MixedPrecisionPolicy(param_dtype=dtype,
+                                      reduce_dtype=torch.float32,
+                                      cast_forward_inputs=False)
 
     def placement(p):
         spec = by_id.get(id(p)) or ()
@@ -207,8 +237,16 @@ def partition_params(model: nn.Module, mesh, fsdp: bool = False
     # over dp alone: a tp parameter is already a DTensor over tp, and
     # fully_shard makes it a dp x tp one (a 2-D mesh here would be HSDP)
     fully_shard(model, mesh=mesh["dp"], shard_placement_fn=placement,
-                ignored_params=whole, reshard_after_forward=True)
+                ignored_params=whole, reshard_after_forward=True,
+                mp_policy=policy)
     return [p for p in model.parameters() if p.requires_grad and p in whole]
+
+
+def fsdp_sharded(p: torch.Tensor) -> bool:
+    """Whether ``p`` is a shard that ``fully_shard`` manages (a DTensor on a
+    mesh with a dp axis)."""
+    mesh = getattr(p, "device_mesh", None)
+    return mesh is not None and "dp" in (mesh.mesh_dim_names or ())
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -368,6 +406,14 @@ def _place_like(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
+def copy_full_(target: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
+    """Copy the whole tensor ``full`` into ``target`` in place: its shard
+    where ``target`` is a DTensor. Returns ``target``."""
+    _local(target).copy_(_local(_place_like(full, target)))
+    return target
+
+
+@torch.no_grad()
 def load_full_state_dict(model: nn.Module, state: Dict[str, torch.Tensor]):
     """Load whole tensors (a checkpoint of any world size) into a model
     whose parameters may be DTensors: each takes its shard. Strict, as
@@ -382,7 +428,7 @@ def load_full_state_dict(model: nn.Module, state: Dict[str, torch.Tensor]):
             raise RuntimeError(f"size mismatch for {name}: "
                                f"{tuple(state[name].shape)} in the state, "
                                f"{tuple(target.shape)} in the model")
-        _local(target).copy_(_local(_place_like(state[name], target)))
+        copy_full_(target, state[name])
 
 
 def place_optimizer_state(optimizer: torch.optim.Optimizer):
@@ -398,26 +444,44 @@ def place_optimizer_state(optimizer: torch.optim.Optimizer):
                     state[k] = _place_like(v, p)
 
 
-def data_parallel(model: nn.Module, mesh, fsdp: bool = False):
+def data_parallel(model: nn.Module, mesh, fsdp: bool = False,
+                  dtype: torch.dtype = torch.float32):
     """The placement the Trainer gives ``model`` over ``mesh``: (the module
-    whose forward trains, the parameters whose gradients ``sync_gradients``
-    averages after each backward, or None where nothing has to).
+    whose forward trains, the function to call after each backward that
+    averages the gradients the placement leaves unaveraged, or None where
+    nothing has to).
 
     - tp > 1 or ``fsdp``: ``partition_params`` (the module trains itself;
-      the parameters it leaves whole are synced by hand);
+      the parameters it leaves whole are averaged by hand over dp x sp, and
+      FSDP's shards, which its reduce-scatter averages over dp, over sp);
     - otherwise DDP over the dp x sp ranks (a world of one too, as
       Lightning's ddp strategy on one card), without broadcasting buffers
       (RAFT's BatchNorm statistics are the global batch's on every rank
       already);
     - no mesh, or a rank alone in dp x sp: the model, nothing to sync.
 
-    Placing replaces parameters: build the optimizer after."""
+    Either way each parameter's gradient is the mean over the dp x sp ranks,
+    which the criteria's ``batch_count`` makes the global batch's.
+    ``dtype`` is the precision the model will train in
+    (``partition_params``). Placing replaces parameters: build the
+    optimizer after."""
     shape = mesh_shape(mesh)
     if fsdp and mesh is None:
         raise ValueError("fsdp needs a process group "
                          "(parallel.init_multihost)")
     if shape["tp"] > 1 or fsdp:
-        return model, partition_params(model, mesh, fsdp)
+        whole = partition_params(model, mesh, fsdp, dtype)
+        syncs = [(whole, data_group(mesh))]
+        if fsdp and shape["sp"] > 1:
+            ids = {id(p) for p in whole}
+            syncs.append(([p for p in model.parameters()
+                           if p.requires_grad and id(p) not in ids],
+                          axis_group(mesh, "sp")))
+
+        def after_backward():
+            for params, group in syncs:
+                sync_gradients(params, group)
+        return model, after_backward
     group = data_group(mesh)
     if group is None:
         return model, None

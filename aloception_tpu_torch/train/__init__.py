@@ -9,8 +9,9 @@ from .callbacks import (ApMetricsCallback, Callback,  # noqa: F401
 from .checkpoint import CheckpointManager  # noqa: F401
 from .data_modules import (CocoDetection2Detr, Data2RAFT,  # noqa: F401
                            pick_bucket)
-from .experiment import find_run_dir, get_expe_infos  # noqa: F401
-from .logger import NoOpLogger, make_logger  # noqa: F401
+from .experiment import (find_run_dir, get_expe_infos,  # noqa: F401
+                         params_update)
+from .logger import NoOpLogger, TensorBoardLogger, make_logger  # noqa: F401
 from .state import TrainOptimizer, onecycle_schedule  # noqa: F401
 from .step import (make_detr_train_step, make_eval_step,  # noqa: F401
                    make_train_step)

@@ -78,3 +78,19 @@ def find_run_dir(run_id: str, project: Optional[str] = None,
     raise FileNotFoundError(
         f"run_id {run_id!r} not found under {base}"
         + (f" (project {project!r})" if project else ""))
+
+
+def params_update(obj, args=None, kwargs: Optional[dict] = None):
+    """Set parsed ``args`` (a namespace or a dict) and ``kwargs`` as
+    attributes of ``obj``, ``kwargs`` winning, and keep them together in
+    ``obj._init_kwargs_config`` (to build the object again). Returns
+    ``obj``."""
+    config = {}
+    if args is not None:
+        config.update(vars(args) if not isinstance(args, dict) else args)
+    if kwargs:
+        config.update(kwargs)
+    for k, v in config.items():
+        setattr(obj, k, v)
+    obj._init_kwargs_config = config
+    return obj

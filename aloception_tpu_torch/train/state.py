@@ -33,7 +33,14 @@ rounded. A checkpoint holds the masters under the model's key names
 Under tensor parallelism or FSDP (``parallel.partition_params``) the
 parameters, their gradients and the AdamW moments are DTensors, each
 rank's shard; the global norm then sums the shards' squares over the ranks
-that split them, and the clipping and the update act on the shards.
+that split them, and the clipping and the update act on the shards. A
+model placed so trains in bfloat16 as the JAX package's does, whose
+float32 parameters are placed by the rule: the masters are taken from the
+placed float32 parameters before the cast, so that each master is placed
+as its parameter is (a tp parameter's master is its tp shard, in float32),
+and FSDP's shards, which its mixed-precision policy casts where it gathers
+them, stay float32 and are their own masters. AdamW steps shards, not
+whole tensors.
 """
 
 from __future__ import annotations
@@ -43,8 +50,8 @@ from typing import Callable, Iterable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..models.transformers import cast_for_training
-from ..parallel.shard import place_optimizer_state
+from ..models.transformers import cast_for_training, set_data_
+from ..parallel.shard import copy_full_, fsdp_sharded, place_optimizer_state
 
 
 def onecycle_schedule(peak_lr: float, total_steps: int,
@@ -133,7 +140,8 @@ class TrainOptimizer:
                  dtype: torch.dtype = torch.float32):
         """With a ``dtype`` other than float32, the masters are taken from
         the model's parameters as they are (exact when it was built in
-        float32) and the model is then cast by ``cast_for_training``."""
+        float32; DTensors where they are placed) and the model is then cast
+        by ``cast_for_training``, FSDP's shards excepted."""
         # what builds the same optimizer over a model whose parameters
         # were replaced (``parallel.partition_params``)
         self.config = dict(lr=lr, lr_backbone=lr_backbone,
@@ -158,9 +166,12 @@ class TrainOptimizer:
                 head.append((name, p))
         masters = {}
         if dtype != torch.float32:
+            # FSDP's float32 shards are cast where they are gathered
+            sharded = {id(p) for p in model.parameters() if fsdp_sharded(p)}
             masters = {name: p.detach().float().clone()
-                       for name, p in model.named_parameters()}
-            cast_for_training(model, dtype)
+                       for name, p in model.named_parameters()
+                       if id(p) not in sharded}
+            cast_for_training(model, dtype, skip=sharded)
         self.params = [p for _, p in head + backbone]
         # (name, parameter, float32 master) of each parameter the model
         # holds in a lower precision; a float32 parameter is its own master
@@ -223,8 +234,9 @@ class TrainOptimizer:
         self.adamw.zero_grad(set_to_none=True)
         if self.low:
             with torch.no_grad():
-                torch._foreach_copy_([p for _, p, _ in self.low],
-                                     [m for _, _, m in self.low])
+                # a placed master is placed as its parameter: shard to shard
+                torch._foreach_copy_([_local(p) for _, p, _ in self.low],
+                                     [_local(m) for _, _, m in self.low])
         self.micro_steps = 0
         self.updates += 1
         return norm
@@ -232,20 +244,37 @@ class TrainOptimizer:
     def model_state_dict(self, model: nn.Module) -> dict:
         """``model.state_dict()`` with the float32 masters in place of the
         parameters the model holds in a lower precision (the frozen ones'
-        float32 values too)."""
+        float32 values too), under every name of a shared parameter
+        (Deformable-DETR's refinement heads are also the decoder's)."""
+        params = dict(model.named_parameters())
+        masters = {id(p): m.detach() for _, p, m in self.low}
+        masters.update({id(params[name]): m
+                        for name, m in self.frozen.items()})
         state = model.state_dict()
-        state.update({name: m.detach() for name, _, m in self.low})
-        state.update(self.frozen)
+        for name, p in model.named_parameters(remove_duplicate=False):
+            if id(p) in masters:
+                state[name] = masters[id(p)]
         return state
 
     def load_masters(self, model_state: dict):
-        """Set the masters from a state dict saved by ``model_state_dict``
-        (the model itself is loaded from it by ``load_state_dict``)."""
-        with torch.no_grad():
-            for name, _, m in self.low:
-                m.copy_(model_state[name])
-            for name, m in self.frozen.items():
-                m.copy_(model_state[name])
+        """Set the masters from a state dict of whole tensors saved by
+        ``model_state_dict`` (the model itself is loaded from it by
+        ``load_state_dict``); a placed master takes its shard."""
+        for name, _, m in self.low:
+            copy_full_(m, model_state[name])
+        for name, m in self.frozen.items():
+            copy_full_(m, model_state[name])
+
+    @torch.no_grad()
+    def restore_float32(self, model: nn.Module):
+        """Put the float32 masters back into the model as its parameters
+        (undo the cast; the buffers stay as they are): a model this
+        optimizer cast, made ready to be placed and given a new one."""
+        params = dict(model.named_parameters())
+        for name, p, m in self.low:
+            set_data_(p, m.detach().clone())
+        for name, m in self.frozen.items():
+            set_data_(params[name], m.detach().clone())
 
     def state_dict(self) -> dict:
         return {"adamw": self.adamw.state_dict(),

@@ -29,8 +29,11 @@ with tp > 1 or ``fsdp``, placed by ``partition_params`` (column-parallel
 DTensors, ``fully_shard``) with the remaining gradients averaged by
 ``sync_gradients``; the optimizer is then built over the placed parameters,
 so that its moments are placed as they are, and the norm that clips is the
-global gradient's (a lower-precision ``dtype`` under tp or FSDP raises
-NotImplementedError). The packed metrics are averaged over the ranks before
+global gradient's. With a lower-precision ``dtype`` the float32 model is
+placed first and the optimizer takes its masters from the placed
+parameters before it casts them (``TrainOptimizer``): a prebuilt
+optimizer that has cast the model already puts its masters back first.
+The packed metrics are averaged over the ranks before
 their one transfer. Validation runs the whole batch on every rank, outside
 the mesh, on the unwrapped model. Checkpoints (whole tensors, loadable at
 any world size), the run's directory and the logger's event file are
@@ -47,9 +50,8 @@ import torch.distributed as dist
 from torch import nn
 
 from ..parallel.distributed import broadcast_object, is_main_process
-from ..parallel.mesh import data_group, make_mesh, mesh_shape, use_mesh
-from ..parallel.shard import (data_parallel, full_tensors, shard_batch,
-                              sync_gradients)
+from ..parallel.mesh import make_mesh, mesh_shape, use_mesh
+from ..parallel.shard import data_parallel, full_tensors, shard_batch
 from .callbacks import Callback, MetricsCallback
 from .checkpoint import CheckpointManager
 from .experiment import get_expe_infos
@@ -101,13 +103,13 @@ class Trainer:
         placed = tp_size > 1 or fsdp
         train_dtype = optimizer.config["dtype"] if optimizer is not None \
             else dtype
-        if placed and train_dtype != torch.float32:
-            raise NotImplementedError(
-                "tensor parallelism or FSDP with a lower-precision model: "
-                "the masters would be taken from its cast")
+        if placed and optimizer is not None and optimizer.low:
+            # the masters are taken from the placed float32 parameters
+            optimizer.restore_float32(model)
         self.mesh = mesh if mesh is not None else make_mesh(tp=tp)
-        # DDP, or the parameters whose gradients sync_gradients averages
-        forward, self._sync = data_parallel(model, self.mesh, fsdp)
+        # DDP, or what averages the gradients the placement leaves
+        forward, after_backward = data_parallel(model, self.mesh, fsdp,
+                                                train_dtype)
         if placed and optimizer is not None:
             # the placement replaced the parameters it was built over
             optimizer = TrainOptimizer(model, **optimizer.config)
@@ -117,10 +119,8 @@ class Trainer:
                            weight_decay=weight_decay, grad_clip=grad_clip,
                            accumulate_steps=accumulate_grad_batches,
                            dtype=dtype)
-        step = make_train_step(
-            forward, self.optimizer, criterion, forward_kwargs,
-            after_backward=None if self._sync is None
-            else self._after_backward)
+        step = make_train_step(forward, self.optimizer, criterion,
+                               forward_kwargs, after_backward=after_backward)
 
         def train_step(inputs, targets):
             with use_mesh(self.mesh):
@@ -147,9 +147,6 @@ class Trainer:
         self.global_step = 0
         self.last_val_metrics: Dict[str, float] = {}
         self._last_val_step = 0
-
-    def _after_backward(self):
-        sync_gradients(self._sync, data_group(self.mesh))
 
     def state_dict(self) -> Dict:
         """What a checkpoint holds: model (its float32 masters where it

@@ -1,6 +1,14 @@
-"""JAX-package parameters -> this package's ``state_dict``.
+"""The named-weights registry, and JAX-package parameters -> this package's
+``state_dict``.
 
-Exact inverses of the torch -> flax converters of
+``WEIGHT_REGISTRY``, ``resolve_weights`` and ``load_weights`` are the JAX
+package's (``aloception_tpu/utils/weights.py``, after the reference's
+``alonet/common/weights.py``): a name maps to a local file under
+``WEIGHTS_DIR``, which the user fills with the published ``.pth`` files;
+nothing is fetched. The port's models use the reference's key names, so a
+published state dict loads into them as it is.
+
+The converters are the exact inverses of the torch -> flax converters of
 ``aloception_tpu/utils/weights.py`` (``convert_resnet50_backbone``,
 ``convert_mha``, ``convert_detr_checkpoint``,
 ``convert_deformable_checkpoint``, ``convert_panoptic_checkpoint``,
@@ -14,13 +22,67 @@ params.
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 StateDict = Dict[str, torch.Tensor]
+
+WEIGHTS_DIR = os.path.expanduser("~/.aloception_tpu/weights")
+
+# the reference's registry names, kept verbatim so that a user who drops the
+# published .pth files into WEIGHTS_DIR loads them by name
+WEIGHT_REGISTRY = {
+    "detr-r50": "detr-r50.pth",
+    "deformable-detr-r50": "deformable-detr-r50.pth",
+    "deformable-detr-r50-refinement": "deformable-detr-r50-refinement.pth",
+    "raft-things": "raft-things.pth",
+    "raft-chairs": "raft-chairs.pth",
+    "raft-sintel": "raft-sintel.pth",
+    "raft-kitti": "raft-kitti.pth",
+    "raft-small": "raft-small.pth",
+    "detr-r50-panoptic": "detr-r50-panoptic.pth",
+}
+
+
+def resolve_weights(name_or_path: str) -> str:
+    """A registry name or a path -> the local file. Raises
+    ``FileNotFoundError`` for a registry name whose file is not in
+    ``WEIGHTS_DIR``, and for anything else that is not a file."""
+    if os.path.exists(name_or_path):
+        return name_or_path
+    if name_or_path in WEIGHT_REGISTRY:
+        path = os.path.join(WEIGHTS_DIR, WEIGHT_REGISTRY[name_or_path])
+        if os.path.exists(path):
+            return path
+        raise FileNotFoundError(
+            f"weights '{name_or_path}' not found at {path}; nothing is "
+            "fetched: place the published file there")
+    raise FileNotFoundError(f"unknown weights: {name_or_path}")
+
+
+def load_weights(model: nn.Module, name_or_path: str) -> nn.Module:
+    """Load the state dict of a registry name or a path into ``model``
+    (``load_state_dict_file``: Lightning's ``model.`` prefixes dropped).
+    A key that the model has and the file lacks raises ``ValueError``, as
+    does a shape that differs (the JAX package's checks); keys of the file
+    that the model lacks are left out. Returns ``model``."""
+    sd = load_state_dict_file(resolve_weights(name_or_path))
+    own = model.state_dict()
+    missing = [k for k in own if k not in sd]
+    if missing:
+        raise ValueError(f"the weights hold no value for {len(missing)} "
+                         f"model parameters, e.g. {missing[:5]}")
+    for k, ref in own.items():
+        if tuple(sd[k].shape) != tuple(ref.shape):
+            raise ValueError(f"shape mismatch at {k}: "
+                             f"{tuple(sd[k].shape)} vs {tuple(ref.shape)}")
+    model.load_state_dict({k: sd[k] for k in own}, strict=True)
+    return model
 
 
 def _t(a) -> torch.Tensor:

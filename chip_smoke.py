@@ -260,10 +260,27 @@
     parameters equal and within 1e-5 * max(1, max|p|) of the one process's
     but for 1e-4 of them (AdamW's steps of near-zero gradients); step ms,
     peak GiB, collectives and kernel counts printed; one process run twice
-    gives the floor.
+    gives the floor. Also in bfloat16 (the model cast over float32
+    masters): one process's steps, and in (b) FSDP (float32 shards gathered
+    in bfloat16) against them at ``BF16_PLACED_TOL``: the first step's
+    metrics and gradients, the masters after the steps; the floor (one
+    process twice) held too, and a control (nothing kept in float32) and
+    unmoved masters required to fail it; (c) gains FSDP beside SP and
+    bfloat16 under TP and FSDP. Tensor parallelism on the card needs a card
+    a rank (NCCL): not run here.
+24. ``utils/profiling.py`` (``profiling_phase``, after the Frame path):
+    ``cost_analysis`` of the bf16 bs16 640 Deformable forward (FLOPs,
+    MSDA's share by its formula, unfused bytes, intensity) and ``trace``
+    of it, whose file must hold the MSDA kernel's events; 24 launches.
+25. The weights registry (``registry_phase``): ``eval_on_coco --weights
+    deformable-detr-r50-refinement`` from a file the run writes under a
+    HOME of its own, each forward against the in-memory model (1e-5).
+26. The tutorials (``tutorials_phase``): 06, 08 and 17 on the card; 10
+    (dp4 x tp2) refuses one card with its reason.
 
-Prints the card's name and power limit, one JSON line describing the
-kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
+Each phase's seconds print after it and together on the line before the
+kernels' JSON line. Prints the card's name and power limit, one JSON line
+describing the kernels, and last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code
 is then not 0 and no result line is printed. Needs a CUDA card; never
 imports JAX.
 """
@@ -399,7 +416,7 @@ PANOPTIC_BF16_TOL = {"forward": 1e-1, "head": 5e-2}
 # 12 iterations; an EPE that falls on a repeated batch
 RAFT_GATE_BATCH, RAFT_GATE_HW = 2, (184, 248)
 RAFT_TRAIN_BATCH, RAFT_TRAIN_HW = 10, (368, 496)
-RAFT_TRAIN_STEPS, RAFT_OVERFIT_STEPS = 6, 12
+RAFT_TRAIN_STEPS, RAFT_OVERFIT_STEPS = 4, 12
 # export: the JAX exporter's defaults, fp32 with TF32 off, batch 1,
 # 480x640, 91 classes; packages go where builds go (git-ignored); 4 requests
 # of uint8 images of other sizes through the handler; the tiny exporters'
@@ -422,7 +439,7 @@ INT8_CONTRACT, CALIB_BATCHES, CALIB_BATCH = 0.05, 2, 2
 # request; the MSDA kernel held against the plain version at each bucket's
 # level shapes
 FIXTURE_DIR = "tests/fixtures/torch_coco"
-COCO_TRAIN_IMAGES, COCO_VAL_IMAGES = 16, 200
+COCO_TRAIN_IMAGES, COCO_VAL_IMAGES = 16, 40
 MULTISCALE_BATCH, MULTISCALE_STEPS, MULTISCALE_OVERFIT = 2, 8, 32
 # valid ratios (H, W) of the two items of a padded bucket batch
 BUCKET_VALID = ((1.0, 1.0), (0.77, 0.6))
@@ -1488,7 +1505,7 @@ def train_gate_phase(device, seed=20):
                 replay_grad_err=replay[0])
 
 
-def train_profile(trainer, batch, device, n_steps=2, regions=None):
+def train_profile(trainer, batch, device, n_steps=1, regions=None):
     """Device-busy time and idle share of train steps (device-only trace),
     and their device time by op and by kernel. ``regions`` (a context
     manager factory that labels the step's regions, the labels, and a
@@ -4555,7 +4572,7 @@ def coco_disk_phase(device):
 # the reference's chairs stage (train_standard.sh: bs10); Sintel at its
 # 436x1024, 2 scenes x 6 frames of the clean pass; KITTI at 375x1242 with
 # the published P_rect_02/P_rect_03; the Waymo front camera at 1280x1920
-CHAIRS_PAIRS, CHAIRS_BATCH, CHAIRS_STEPS = (60, 10), 10, 6
+CHAIRS_PAIRS, CHAIRS_BATCH, CHAIRS_STEPS = (60, 10), 10, 4
 CHAIRS_HW = (384, 512)
 SINTEL_SCENES, SINTEL_FRAMES = 2, 6
 SINTEL_EVAL_PAIRS, SINTEL_CPU_PAIRS = 8, 2
@@ -5547,28 +5564,42 @@ def _cat_rows(outs):
 
 
 def parallel_deformable_run(device, tag, count_ops=False, rowwise=False,
+                            keep_start=False, fsdp_layout=False,
                             **trainer_kwargs):
     """``gate_setup``'s Deformable-DETR-R50-refine (float32, dropout 0) and
     its batch of 2 at 640 x 640, through ``Trainer.fit`` for PARALLEL_STEPS
     steps on the batch (under a process group: this rank's rows, the mesh
-    ``trainer_kwargs`` gives). Returns the steps' metrics and ms, the first
-    step's gradients (averaged over the ranks, before the update) and
-    matched queries of this rank's rows, the parameters after the steps,
-    the kernel counts and plans of the steps, the collectives (DDP's bucket
-    all-reduces; with ``count_ops`` every collective op too, which slows
-    the steps), the peak GiB, and the kernel held against the plain version
-    in float32 on the run's own first call at each launch shape (B, Lq,
+    ``trainer_kwargs`` gives; with ``dtype`` bfloat16 in it, the model cast
+    over float32 masters). Returns the steps' metrics and ms, the first
+    step's gradients (averaged over the ranks, before the update; the
+    masters' under bfloat16) and matched queries of this rank's rows, the
+    parameters (the float32 masters) after the steps, the kernel counts and
+    plans of the steps, the collectives (DDP's bucket all-reduces; with
+    ``count_ops`` every collective op too, which slows the steps), the peak
+    GiB, and the kernel held against the plain version in the run's dtype
+    (``_gate``) on the run's own first call at each launch shape (B, Lq,
     Len_v: the encoder's, at Lq / sp under sequence parallelism, and the
-    decoder's). ``rowwise``: the forward row by row (``_RowWise``)."""
+    decoder's). ``rowwise``: the forward row by row (``_RowWise``);
+    ``keep_start``: the parameters (the masters) before the steps too;
+    ``fsdp_layout``: the parameters that ``fully_shard`` shards made
+    contiguous, as it makes them (the convolutions' weights are
+    channels_last otherwise, and cuDNN's bfloat16 kernels for the two
+    layouts round apart)."""
     from aloception_tpu_torch.models.deformable_detr import ms_deform_attn \
         as msda_module
     from aloception_tpu_torch.ops.cuda import ms_deform_attn_cuda
     from aloception_tpu_torch.ops.ms_deform_attn import ms_deform_attn_torch
     from aloception_tpu_torch.parallel import shard_batch
     from aloception_tpu_torch.parallel.dryrun import CollectiveCount
+    from aloception_tpu_torch.parallel.shard import _FSDP_MIN_SIZE
     from aloception_tpu_torch.train import Trainer
 
     model, images, mask, targets = gate_setup(device)
+    if fsdp_layout:
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.requires_grad and p.numel() >= _FSDP_MIN_SIZE:
+                    p.data = p.data.contiguous()
     if rowwise:
         model = _RowWise(model)
     batch = {"inputs": (images, mask), "targets": targets}
@@ -5578,13 +5609,15 @@ def parallel_deformable_run(device, tag, count_ops=False, rowwise=False,
                       callbacks=[rec], log_dir=os.path.join(
                           PARALLEL_DIR, "expe"), project="parallel",
                       expe_name=tag, run_id=tag, **trainer_kwargs)
-    step = trainer.optimizer.adamw.step
+    opt = trainer.optimizer
+    step = opt.adamw.step
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
 
     def capture(*a, **kw):      # the gradients the first update is given
-        if not grads:
-            grads.append({n: p.grad.detach().clone() for n, p in
-                          trainer.model.named_parameters()
-                          if p.grad is not None})
+        if not grads:           # (the float32 masters' under bfloat16)
+            grads.append({names[id(p)]: m.grad.detach().clone()
+                          for p, m in zip(opt.params, opt.masters)
+                          if m.grad is not None})
         return step(*a, **kw)
 
     trainer.optimizer.adamw.step = capture
@@ -5601,6 +5634,10 @@ def parallel_deformable_run(device, tag, count_ops=False, rowwise=False,
                           loc.detach().clone(), w.detach().clone())
         return msda(value, shapes, loc, w)
 
+    head = "model." if rowwise else ""
+    start = {n[len(head):]: v.detach().cpu().clone() for n, v in
+             opt.model_state_dict(trainer.model).items()} if keep_start \
+        else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -5616,16 +5653,18 @@ def parallel_deformable_run(device, tag, count_ops=False, rowwise=False,
         for (B, Lq, len_v), args in calls.items():
             got = ms_deform_attn_cuda(*args)
             torch.cuda.synchronize()
-            key = f"parallel {tag} B{B} Lq{Lq} Len_v{len_v}/float32"
-            msda_errs[key] = _gate(got, ms_deform_attn_torch(*args),
-                                   torch.float32, key)[0]
+            dtype = args[0].dtype
+            key = (f"parallel {tag} B{B} Lq{Lq} Len_v{len_v}/"
+                   f"{str(dtype).split('.')[-1]}")
+            msda_errs[key] = _gate(got, ms_deform_attn_torch(*args), dtype,
+                                   key)[0]
     del calls
     ts = [t0] + rec.t
-    head = "model." if rowwise else ""
     full = {n[len(head):]: getattr(g, "full_tensor", lambda: g)()
             for n, g in grads[0].items()}
+    # the float32 masters where the model computes in bfloat16
     state = {n[len(head):]: getattr(v, "full_tensor", lambda: v)()
-             for n, v in trainer.model.state_dict().items()}
+             for n, v in opt.model_state_dict(trainer.model).items()}
     return {"metrics": rec.metrics,
             "step_ms": [1e3 * (b - a) for a, b in zip(ts, ts[1:])],
             "grads": {n: g.cpu() for n, g in full.items()},
@@ -5634,7 +5673,7 @@ def parallel_deformable_run(device, tag, count_ops=False, rowwise=False,
             "counts": counts, "collectives": dict(collectives.counts),
             "plans": {f"B{k[0]} Lq{k[1]} Len_v{k[2]} {k[3]}": brief(p)
                       for k, p in plans.items()},
-            "peak_gib": peak_gib, "msda_errs": msda_errs,
+            "peak_gib": peak_gib, "msda_errs": msda_errs, "start": start,
             "rows": int(shard_batch(images, trainer.mesh).shape[0])}
 
 
@@ -5687,7 +5726,10 @@ def _card_rank(rank, n, what):
     if "fsdp" in what:
         out["fsdp"] = parallel_deformable_run(device, "fsdp", fsdp=True)
         torch.cuda.empty_cache()
-
+    if "fsdp_bf16" in what:
+        out["fsdp_bf16"] = parallel_deformable_run(
+            device, "fsdp_bf16", fsdp=True, dtype=torch.bfloat16)
+        torch.cuda.empty_cache()
     if "raft" in what:
         out["raft"] = parallel_raft_run(device)
     return out
@@ -5785,19 +5827,131 @@ def _gate_against(got, want, tag, rows=None, hold=True):
                 params_share=beyond / total, params_max_diff=worst)
 
 
+# bfloat16 FSDP (float32 shards as the masters, gathered in bfloat16)
+# against the unwrapped bfloat16 step in FSDP's layout (``fsdp_layout``),
+# both from the same float32 masters. Limits set between the floor (the
+# unwrapped step run twice) and two faults, on an H100
+# (scripts/parallel_phase.py): the control, the same step with nothing
+# kept in float32 (the norms, the frozen BatchNorm fold and the
+# reference-point projection in bfloat16, below what cast_for_training
+# keeps), must stand beyond "step1" or "grad_l2"; masters left where they
+# started must stand beyond "share" or "change_l2".
+# - "step1": the first step's metrics, relative (its losses and the norm of
+#   its gradient, before any update);
+# - "grad_l2": the first step's gradients together, by L2;
+# - "share": the float32 masters after the steps, the share of elements
+#   beyond 1e-5 * max(1, max|p|) of the unwrapped run's (``_updated_within``:
+#   AdamW moves an element by about lr a step whatever its gradient's size,
+#   so an element whose gradient rounds to the other sign in bfloat16 moves
+#   the other way);
+# - "change_l2": ||masters - unwrapped masters|| / ||unwrapped masters -
+#   start||, over every floating tensor (1 where the masters never moved).
+# Measured on an H100 (NVIDIA H100 80GB HBM3, 700 W) before they were set:
+# the floor 1.1e-5-2.5e-5, 1.5e-3-1.8e-3, 3.8e-2-5.3e-2 and 8.5e-2-0.107;
+# FSDP 6.1e-6, 2.1e-3, 5.1e-2 and 0.104; the control 1.4e-2 and 7.8e-2 on
+# the first step; unmoved masters 0.67 and 1. Against the unwrapped step in
+# its own layout (channels_last convolutions) FSDP's first step once read
+# 8.4e-3 and 4.7e-2, a matched query flipped. The later steps' metrics are
+# printed: they stand as far apart in the floor as in the control (up to
+# 0.15 and 0.12 of a loss), the elements moved the other way amplified by a
+# bfloat16 forward.
+BF16_PLACED_TOL = dict(step1=1e-3, grad_l2=1e-2, share=0.15, change_l2=0.3)
+
+
+def _bf16_errors(got, want, start):
+    """A bfloat16 run against another from the same ``start`` state: the
+    first step's metrics (the largest relative gap, its key), its gradients
+    together by L2, the later steps' metrics, the matched queries equal, and
+    the masters after the steps (``_updated_within``'s count, share and
+    max|diff|; the L2 of their gap over the L2 of ``want``'s change)."""
+    per_step = [max((_rel(got["metrics"][i][k], want["metrics"][i][k]), k)
+                    for k in want["metrics"][i])
+                for i in range(PARALLEL_STEPS)]
+    names = sorted(want["grads"])
+    g, w = (torch.cat([d[n].float().flatten() for n in names])
+            for d in (got["grads"], want["grads"]))
+    beyond, total, worst = _updated_within(got["state"], want["state"])
+    gap = moved = 0.0
+    for n, v in want["state"].items():
+        if v.is_floating_point():
+            gap += (got["state"][n].double() - v.double()).pow(2).sum().item()
+            moved += (v.double() - start[n].double()).pow(2).sum().item()
+    return dict(step1=per_step[0][0], step1_key=per_step[0][1],
+                grad_l2=((g - w).norm() / w.norm()).item(),
+                later=[e for e, _ in per_step[1:]],
+                later_keys=[k for _, k in per_step[1:]],
+                matched_equal=torch.equal(got["matched"], want["matched"]),
+                params_beyond=beyond, share=beyond / total,
+                masters_max_diff=worst, change_l2=(gap / moved) ** 0.5)
+
+
+def _bf16_beyond(errs, keys=("step1", "grad_l2", "share", "change_l2")):
+    """The keys of ``errs`` beyond BF16_PLACED_TOL."""
+    return [k for k in keys if not errs[k] <= BF16_PLACED_TOL[k]]
+
+
+def _print_bf16(errs, tag):
+    later = ", ".join(f"{e:.3e} ({k})"
+                      for e, k in zip(errs["later"], errs["later_keys"]))
+    print(f"  {tag}: the first step's metrics {errs['step1']:.3e} "
+          f"({errs['step1_key']}; tol {BF16_PLACED_TOL['step1']:g}), its "
+          f"gradients together {errs['grad_l2']:.3e} of L2 (tol "
+          f"{BF16_PLACED_TOL['grad_l2']:g}); the later steps' metrics "
+          f"{later} (printed); matched queries equal: {errs['matched_equal']}; the "
+          f"float32 masters after {PARALLEL_STEPS} steps: "
+          f"{errs['params_beyond']} beyond 1e-5 * max(1, max|p|) (share "
+          f"{errs['share']:.3e}, tol {BF16_PLACED_TOL['share']:g}), their "
+          f"gap {errs['change_l2']:.3e} of the update's L2 (tol "
+          f"{BF16_PLACED_TOL['change_l2']:g}), max|diff| "
+          f"{errs['masters_max_diff']:.3e}")
+
+
+def _bf16_gate(got, want, start, floor, control, unmoved):
+    """The bf16 FSDP run against the unwrapped bf16 one, held at
+    BF16_PLACED_TOL; the floor (one process twice) printed beside it and
+    held too, and the two faults (the control, masters that never moved)
+    required to stand beyond the limits they are for. Returns the gaps."""
+    got = _bf16_errors(got, want, start)
+    for errs, tag in ((floor, "one process bf16 twice (floor)"),
+                      (control, "nothing kept in float32 (control)"),
+                      (unmoved, "masters left at the start (fault)"),
+                      (got, "world of one fsdp_bf16 vs unwrapped bf16")):
+        _print_bf16(errs, tag)
+    faults = []
+    if _bf16_beyond(got):
+        faults.append(f"fsdp_bf16 beyond {_bf16_beyond(got)}")
+    if _bf16_beyond(floor):
+        faults.append(f"the floor beyond {_bf16_beyond(floor)}")
+    if not _bf16_beyond(control, ("step1", "grad_l2")):
+        faults.append("the control within the first step's limits")
+    if not _bf16_beyond(unmoved, ("share", "change_l2")):
+        faults.append("unmoved masters within the masters' limits")
+    if faults:
+        raise AssertionError(f"bf16 gate: {'; '.join(faults)}")
+    return dict(got, floor=floor, control=control, unmoved=unmoved)
+
+
 def parallel_phase(device):
     """parallel/ on the card: (a) two ranks on the one H100 over gloo with
     CUDA tensors: Deformable-DETR-R50-refine at full width (float32, TF32
     off, dropout 0), 2 DDP ``Trainer.fit`` steps of bs1 a rank through
     ``init_multihost``, then one sequence-parallel (sp 2) run of both rows,
-    whose MSDA kernel runs at Lq / 2 encoder queries, and RAFT (hidden 128,
+    whose MSDA kernel runs at Lq / 2 encoder queries, RAFT (hidden 128,
     4 levels) one DDP step of bs1 a rank at 368 x 496, each against one
     process stepping the global bs2 batch; (b) a world of one on NCCL: the
     same Deformable steps under a mesh of one (DDP) and under FSDP against
-    the unwrapped steps; (c) ``parallel.dryrun`` on 8 CPU gloo ranks at tiny
-    widths (FSDP, TP, SP and PP, with the checks that the sharding is real).
-    Prints the step ms, peak GiB and kernel counts of each; returns what the
-    JSON line carries."""
+    the unwrapped steps, and under FSDP in bfloat16 (float32 shards
+    gathered in bfloat16) against the unwrapped bfloat16 steps
+    (``_bf16_gate``); (c)
+    ``parallel.dryrun`` on 8 CPU gloo ranks at tiny widths (FSDP, TP, SP,
+    FSDP beside SP, bfloat16 under TP and FSDP, and PP, with the checks
+    that the sharding is real). One card holds no tp mesh: NCCL takes one
+    card a rank, and DTensor's collectives over gloo on CUDA tensors end
+    the process (torch 2.11), so tensor parallelism (bfloat16 too) and FSDP
+    beside SP are held on the CPU ranks of (c) only. Prints the step ms,
+    peak GiB and kernel counts of each; returns what the JSON line
+    carries."""
+    from aloception_tpu_torch.models import transformers
     from aloception_tpu_torch.parallel import dryrun
 
     t_phase = time.perf_counter()
@@ -5807,12 +5961,30 @@ def parallel_phase(device):
     again = parallel_deformable_run(device, "again")
     out_floor = _gate_against(again, one, "one process twice", hold=False)
     rows = parallel_deformable_run(device, "rows", rowwise=True)
+    # the bf16 FSDP run's reference, in FSDP's layout; the same step again
+    # (the bf16 gate's floor), and with nothing kept in float32 (its
+    # control: the norms, the frozen BatchNorm fold and the reference-point
+    # projection in bf16)
+    bf16 = dict(fsdp_layout=True, dtype=torch.bfloat16)
+    one_bf16 = parallel_deformable_run(device, "one_bf16", keep_start=True,
+                                       **bf16)
+    start = one_bf16.pop("start")
+    again_bf16 = parallel_deformable_run(device, "again_bf16", **bf16)
+    with mock.patch.object(transformers, "float32_kept", lambda m: set()):
+        control = parallel_deformable_run(device, "control_bf16", **bf16)
+    bf16_floor = _bf16_errors(again_bf16, one_bf16, start)
+    bf16_control = _bf16_errors(control, one_bf16, start)
+    bf16_unmoved = _bf16_errors(dict(one_bf16, state=start), one_bf16,
+                                start)
+    del again_bf16, control
     one_raft = parallel_raft_run(device)
     torch.cuda.empty_cache()
-    print(f"parallel: one process, Deformable-DETR-R50-refine fp32 bs2 "
-          f"{TRAIN_SIZE}: step ms {[round(t, 1) for t in one['step_ms']]}, "
-          f"peak {one['peak_gib']:.2f} GiB, counts (msda launches, backward "
-          f"passes, hungarian) {one['counts']}")
+    for tag, run in (("fp32", one), ("bf16", one_bf16)):
+        print(f"parallel: one process, Deformable-DETR-R50-refine {tag} bs2 "
+              f"{TRAIN_SIZE}: step ms "
+              f"{[round(t, 1) for t in run['step_ms']]}, peak "
+              f"{run['peak_gib']:.2f} GiB, counts (msda launches, backward "
+              f"passes, hungarian) {run['counts']}")
 
     t0 = time.perf_counter()
     # the ranks prepare the batch on the host with this process's threads:
@@ -5855,6 +6027,8 @@ def parallel_phase(device):
         out[f"{tag}_step_ms"] = [res[tag]["step_ms"] for res in ranks]
         out[f"{tag}_collectives"] = ranks[0][tag]["collectives"]
         out[f"{tag}_peak_gib"] = [res[tag]["peak_gib"] for res in ranks]
+    out["one_bf16_step_ms"] = one_bf16["step_ms"]
+    out["one_bf16_peak_gib"] = one_bf16["peak_gib"]
     sp_plans = ranks[0]["sp"]["plans"]
     # the encoder's calls: Lq = Len_v; under sp 2 each rank's Lq is half
     enc = max(int(k.split()[1][2:]) for k in one["plans"]
@@ -5866,8 +6040,8 @@ def parallel_phase(device):
     # the kernel against the plain version on each run's own inputs (the
     # largest error over the ranks)
     msda_errs = {}
-    for res in [one, again, rows] + [r[t] for r in ranks
-                                     for t in ("ddp", "sp")]:
+    for res in [one, again, rows, one_bf16] + [
+            r[t] for r in ranks for t in ("ddp", "sp")]:
         for k, v in res["msda_errs"].items():
             msda_errs[k] = max(v, msda_errs.get(k, 0.0))
     if not any(k.startswith("parallel sp ")
@@ -5886,55 +6060,275 @@ def parallel_phase(device):
     out.update(raft_stats_err=stats_err, raft_loss_err=raft_loss)
 
     t0 = time.perf_counter()
-    world1, = dryrun.spawn(1, _card_rank, ("ddp", "fsdp"), timeout=300,
-                           device=PARALLEL_DEVICE, threads=threads)
+    world1, = dryrun.spawn(1, _card_rank, ("ddp", "fsdp", "fsdp_bf16"),
+                           timeout=400, device=PARALLEL_DEVICE,
+                           threads=threads)
     b_s = time.perf_counter() - t0
     print(f"parallel (b): a world of one on NCCL, {b_s:.1f} s; unwrapped "
-          f"step ms {[round(t, 1) for t in one['step_ms']]}")
-    for tag in ("ddp", "fsdp"):
+          f"step ms {[round(t, 1) for t in one['step_ms']]}, bf16 "
+          f"{[round(t, 1) for t in one_bf16['step_ms']]}")
+    for tag in ("ddp", "fsdp", "fsdp_bf16"):
         got = world1[tag]
         print(f"  {tag}: step ms {[round(t, 1) for t in got['step_ms']]}, "
               f"peak {got['peak_gib']:.2f} GiB, counts {got['counts']}, "
               f"collectives {got['collectives']}")
-        if got["counts"][0] != MSDA_CALLS_PER_FORWARD * PARALLEL_STEPS:
+        if got["counts"][:2] != (MSDA_CALLS_PER_FORWARD * PARALLEL_STEPS,) * 2:
             raise AssertionError(f"world of one {tag}: counts "
                                  f"{got['counts']}")
-        out[f"world1_{tag}_gate"] = _gate_against(got, one,
-                                                  f"world of one {tag}")
+        if tag.endswith("bf16"):
+            out[f"world1_{tag}_gate"] = _bf16_gate(got, one_bf16, start,
+                                                   bf16_floor, bf16_control,
+                                                   bf16_unmoved)
+        else:
+            out[f"world1_{tag}_gate"] = _gate_against(
+                got, one, f"world of one {tag}")
         out[f"world1_{tag}_step_ms"] = got["step_ms"]
+        out[f"world1_{tag}_peak_gib"] = got["peak_gib"]
         msda_errs.update(got["msda_errs"])
     for k, v in msda_errs.items():
-        print(f"  msda {k}: max|kernel-plain|={v:.3e} (tol 1e-05) on the "
+        tol = "1e-05" if k.endswith("float32") else "2e-2 * max|ref|"
+        print(f"  msda {k}: max|kernel-plain|={v:.3e} (tol {tol}) on the "
               "run's own inputs")
     out["msda_errs"] = msda_errs
     out["unwrapped_step_ms"] = one["step_ms"]
     out["b_seconds"] = b_s
 
     print("parallel (c): parallel.dryrun on 8 CPU gloo ranks at tiny widths "
-          "(FSDP, TP and SP over gloo and the pipeline, checked as the JAX "
-          "dry run checks them; the card's gloo is left to (a))")
+          "(FSDP, TP, SP, FSDP beside SP, bf16 under TP and FSDP over gloo, "
+          "and the pipeline, checked as the JAX dry run checks them; the "
+          "card's gloo is left to (a))")
     t0 = time.perf_counter()
     lines = dryrun.dryrun(8)
     for line in lines:
         print(f"  {line}")
     out["c_seconds"] = time.perf_counter() - t0
     out["dryrun"] = lines
-    launches = {"parallel_ddp": sum(r["ddp"]["counts"][0] for r in ranks),
-                "parallel_sp": sum(r["sp"]["counts"][0] for r in ranks),
-                "parallel_world1_ddp": world1["ddp"]["counts"][0],
-                "parallel_world1_fsdp": world1["fsdp"]["counts"][0]}
-    backward = {"parallel_ddp": sum(r["ddp"]["counts"][1] for r in ranks),
-                "parallel_sp": sum(r["sp"]["counts"][1] for r in ranks),
-                "parallel_world1_ddp": world1["ddp"]["counts"][1],
-                "parallel_world1_fsdp": world1["fsdp"]["counts"][1]}
-    hung = {"parallel_ddp": sum(r["ddp"]["counts"][2] for r in ranks),
-            "parallel_sp": sum(r["sp"]["counts"][2] for r in ranks),
-            "parallel_world1_ddp": world1["ddp"]["counts"][2],
-            "parallel_world1_fsdp": world1["fsdp"]["counts"][2]}
+    # (msda launches, backward passes, hungarian) of each run, summed over
+    # its ranks
+    runs = {f"parallel_{t}": [r[t] for r in ranks] for t in ("ddp", "sp")}
+    runs.update({f"parallel_world1_{t}": [world1[t]]
+                 for t in ("ddp", "fsdp", "fsdp_bf16")})
+    launches, backward, hung = (
+        {k: sum(r["counts"][i] for r in rs) for k, rs in runs.items()}
+        for i in range(3))
     out["seconds"] = time.perf_counter() - t_phase
     print(f"parallel phase {out['seconds']:.1f} s; msda launches {launches}, "
           f"backward passes {backward}, hungarian {hung}; {_smi()}")
     return out, launches, backward, hung
+
+
+# ---------------------------------------------------------------------------
+# utils/profiling.py, the weights registry and the tutorials on the card
+# ---------------------------------------------------------------------------
+PROFILE_DIR = "aloception_tpu_torch/_build/profile"
+REGISTRY_HOME = "aloception_tpu_torch/_build/registry_home"
+REGISTRY_NAME = "deformable-detr-r50-refinement"
+REGISTRY_BATCHES = 2
+TUTORIALS = ("torch_06_detr_inference", "torch_08_raft_optical_flow",
+             "torch_10_multichip_sharding", "torch_17_pipeline_parallelism")
+TUTORIAL_DIR = "aloception_tpu_torch/_build/tutorials"
+
+
+def profiling_phase(m16, device):
+    """``utils/profiling`` on the main path's bf16 bs16 640-px
+    Deformable-DETR-R50-refine forward: ``cost_analysis`` (FLOPs, MSDA's
+    share by its registered formula, the unfused bytes, the intensity) and
+    ``trace``, whose file must hold the MSDA kernel among its kernel events.
+    Each runs one forward: 12 MSDA launches each."""
+    import glob
+    import shutil
+    from aloception_tpu_torch.ops.cuda import ms_deform_attn_cuda
+    from aloception_tpu_torch.utils.profiling import cost_analysis, trace
+
+    g = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn(BATCH, *SIZE, 3, device=device,
+                    generator=g).to(torch.bfloat16)
+    mask = torch.zeros(BATCH, *SIZE, device=device)
+    t0 = time.perf_counter()
+    ms_deform_attn_cuda.launches = 0
+    # the FLOP counter's module tracker hooks the gradient of every module
+    # input that needs one (a parameter too), which needs grad mode: the
+    # parameters need none for the forward
+    needs = [p for p in m16.parameters() if p.requires_grad]
+    for p in needs:
+        p.requires_grad_(False)
+    with torch.no_grad():
+        cost = cost_analysis(m16, x, mask)
+    for p in needs:
+        p.requires_grad_(True)
+    cost_s = time.perf_counter() - t0
+    msda_flops = sum(v for k, v in cost["flops_by_op"].items()
+                     if "ms_deform_attn" in k)
+    share = msda_flops / cost["flops"]
+    intensity = cost["flops"] / cost["bytes_accessed"]
+    print(f"profiling: cost_analysis of the bf16 bs{BATCH} {SIZE[0]}px "
+          f"Deformable forward ({cost_s:.1f} s): {cost['flops']:.4e} FLOPs "
+          f"(MSDA {msda_flops:.4e} by its formula, {100 * share:.2f} %), "
+          f"{cost['bytes_accessed']:.4e} bytes unfused, intensity "
+          f"{intensity:.2f} FLOP/B, {cost['transcendentals']:.4e} "
+          f"transcendentals; by op "
+          f"{ {k: f'{v:.3e}' for k, v in cost['flops_by_op'].items()} }")
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    with torch.inference_mode(), trace(PROFILE_DIR):
+        m16(x, mask)
+        torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    launches = ms_deform_attn_cuda.launches
+    files = glob.glob(os.path.join(PROFILE_DIR, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    msda = sorted(k for k in kernels if "msda_forward_kernel" in k)
+    print(f"profiling: trace ({trace_s:.1f} s) wrote "
+          f"{os.path.basename(files[0])}, "
+          f"{os.path.getsize(files[0]) / 2**20:.1f} MiB, {len(events)} "
+          f"events, {len(kernels)} kernel names, the MSDA kernel's: "
+          f"{[k[:90] for k in msda]}; msda launches {launches}")
+    if not msda:
+        raise AssertionError("the trace holds no MSDA kernel event")
+    if launches != 2 * MSDA_CALLS_PER_FORWARD:
+        raise AssertionError(f"profiling: msda launches {launches}")
+    return {"flops": cost["flops"], "msda_flops": msda_flops,
+            "msda_flop_share": share,
+            "bytes_accessed": cost["bytes_accessed"],
+            "transcendentals": cost["transcendentals"],
+            "intensity": intensity, "cost_seconds": cost_s,
+            "trace_seconds": trace_s, "trace_events": len(events),
+            "msda_kernel_events": msda, "launches": launches}
+
+
+def registry_phase(device):
+    """The weights registry on the card: a seeded Deformable-DETR-R50-refine
+    (its sampling drawn as in ``gate_setup``) saved as the registry's
+    REGISTRY_NAME file under a HOME in the checkout's build directory, then
+    ``eval_on_coco --sample --model deformable --weights REGISTRY_NAME``
+    for REGISTRY_BATCHES batches: each forward of the command's model held
+    against the in-memory model's on the same inputs (1e-5 * max(1,
+    max|ref|), float32), 12 MSDA launches a batch."""
+    from aloception_tpu_torch.commands import eval_on_coco
+    from aloception_tpu_torch.models import deformable_detr as dd
+    from aloception_tpu_torch.models.deformable_detr import ms_deform_attn \
+        as msda_module
+    from aloception_tpu_torch.train import CocoDetection2Detr
+    from aloception_tpu_torch.utils import weights
+
+    t0 = time.perf_counter()
+    home = os.path.abspath(REGISTRY_HOME)
+    wdir = os.path.join(home, ".aloception_tpu", "weights")
+    os.makedirs(wdir, exist_ok=True)
+    n_cls = len(CocoDetection2Detr(sample=True).label_names)
+    build = dd.deformable_detr_r50
+    ref = build(num_classes=n_cls, with_box_refine=True, device=device,
+                generator=torch.Generator(device=device).manual_seed(11))
+    g = torch.Generator(device=device).manual_seed(12)
+    with torch.no_grad():
+        for mod in ref.modules():
+            if isinstance(mod, msda_module.MSDeformAttn):
+                mod.sampling_offsets.weight.normal_(0.0, 0.1, generator=g)
+                mod.attention_weights.weight.normal_(0.0, 0.1, generator=g)
+    path = os.path.join(wdir, weights.WEIGHT_REGISTRY[REGISTRY_NAME])
+    torch.save({k: v.cpu() for k, v in ref.state_dict().items()}, path)
+    seen = []
+
+    def recorded(**kwargs):
+        model = build(**kwargs)
+        model.register_forward_hook(lambda m, i, o: seen.append(
+            ([t.clone() for t in i], _detach(o))))
+        return model
+
+    _reset_counts()
+    with mock.patch.dict(os.environ, {"HOME": home}), \
+            mock.patch.object(weights, "WEIGHTS_DIR", wdir), \
+            mock.patch.object(dd, "deformable_detr_r50", recorded):
+        eval_on_coco.main(["--sample", "--model", "deformable", "--weights",
+                           REGISTRY_NAME, "--limit_batches",
+                           str(REGISTRY_BATCHES)])
+    counts = _counts()
+    errs = []
+    with torch.inference_mode():
+        for inputs, got in seen:
+            want = ref(*inputs)
+            for k in ("pred_logits", "pred_boxes"):
+                w = want[k].float()
+                errs.append((got[k].float() - w).abs().max().item()
+                            / max(1.0, w.abs().max().item()))
+    seconds = time.perf_counter() - t0
+    print(f"registry: eval_on_coco --weights {REGISTRY_NAME} (the file "
+          f"under HOME={REGISTRY_HOME}) for {len(seen)} batches of "
+          f"{tuple(seen[0][0][0].shape) if seen else None}: outputs against "
+          f"the in-memory model's max|diff| / max(1, max|ref|) "
+          f"{max(errs, default=float('nan')):.3e} (tol 1e-5); msda launches "
+          f"{counts[0]}; {seconds:.1f} s")
+    if len(seen) != REGISTRY_BATCHES or not max(errs) <= 1e-5:
+        raise AssertionError("registry: the command's model disagrees with "
+                             "the file's")
+    if counts[0] != MSDA_CALLS_PER_FORWARD * REGISTRY_BATCHES:
+        raise AssertionError(f"registry: msda launches {counts[0]}")
+    return {"batches": len(seen), "max_err": max(errs),
+            "launches": counts[0], "seconds": seconds}
+
+
+def tutorials_phase():
+    """The port's tutorials, each ``main()`` with no device, on the card:
+    06 (DETR's boxes for each frame), 08 (a Flow of the input's size) and
+    17 (8 gloo ranks sharing the card, dp4 x pp2: the pipelined forward
+    within 1e-5 of the sequential stack's); 10 (dp4 x tp2) takes a card a
+    rank, and must refuse the one card with its reason (its 8 CPU ranks
+    are the CPU tests'). No kernel of the port runs in them: the counts
+    stay 0."""
+    import importlib
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tutorials"))
+    os.makedirs(TUTORIAL_DIR, exist_ok=True)
+    _reset_counts()
+    out = {}
+    for name in TUTORIALS:
+        t0 = time.perf_counter()
+        mod = importlib.import_module(name)
+        if name.startswith(("torch_06", "torch_08")):
+            res = mod.main(out_dir=TUTORIAL_DIR)
+        elif name.startswith("torch_10") and torch.cuda.device_count() < 8:
+            try:
+                mod.main()
+            except RuntimeError as e:
+                res = str(e)
+            else:
+                raise AssertionError("tutorial 10 ran its 8 tp ranks on "
+                                     "fewer than 8 cards")
+        else:
+            res = mod.main()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        if name.startswith("torch_06"):
+            ok = len(res) == 2 and all(len(b) and b.array.is_cuda
+                                       for b in res)
+            summary = {"boxes": [len(b) for b in res]}
+        elif name.startswith("torch_08"):
+            ok = tuple(res.shape) == (2, 96, 128) \
+                and bool(res.array.isfinite().all())
+            summary = {"flow_shape": list(res.shape)}
+        elif name.startswith("torch_10") and isinstance(res, str):
+            ok = "takes 8 cards" in res
+            summary = {"refused": res}
+        elif name.startswith("torch_10"):
+            ok = len(res["losses"]) == 3 and all(
+                l == l and abs(l) < float("inf") for l in res["losses"]) \
+                and res["placements"] == ["Shard(dim=0)"]
+            summary = {"losses": res["losses"],
+                       "placement": res["placement"]}
+        else:
+            ok = res["maxdiff"] <= 1e-5
+            summary = dict(res)
+        print(f"tutorial {name} on the card: {s:.1f} s, {summary}")
+        if not ok:
+            raise AssertionError(f"tutorial {name}: {summary}")
+        out[name] = dict(summary, seconds=s)
+    if _counts() != (0, 0, 0):
+        raise AssertionError(f"tutorials: kernel counts {_counts()}")
+    return out
 
 
 def main():
@@ -5967,46 +6361,66 @@ def main():
         flag = "  SPILLS" if st or ld else ""
         print(f"  {key}: {regs} registers, spills {st}/{ld}{flag}")
 
-    errs, sites = kernel_phase(device)
-    launches, parity, m16 = slice_phase(device)
-    frame_launches = deformable_frame_phase(m16, device)
+    seconds = {}
+
+    def phase(name, fn, *args):
+        """``fn(*args)``, its seconds kept under ``name`` and printed."""
+        t0 = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[phase] {name}: {seconds[name]:.1f} s")
+        return result
+
+    errs, sites = phase("kernel", kernel_phase, device)
+    launches, parity, m16 = phase("slice", slice_phase, device)
+    frame_launches = phase("deformable_frame", deformable_frame_phase, m16,
+                           device)
+    profiling = phase("profiling", profiling_phase, m16, device)
     del m16
-    detr_parity_phase(device)
-    detr_phase(device)
-    hung, hung_diff = hungarian_phase(device)
-    gate = train_gate_phase(device)
-    train = train_phase(device)
+    phase("detr_parity", detr_parity_phase, device)
+    phase("detr", detr_phase, device)
+    hung, hung_diff = phase("hungarian", hungarian_phase, device)
+    gate = phase("train_gate", train_gate_phase, device)
+    train = phase("train", train_phase, device)
     torch.cuda.empty_cache()
-    detr_train = detr_train_phase(device)
+    detr_train = phase("detr_train", detr_train_phase, device)
     torch.cuda.empty_cache()
-    raft_errs = raft_parity_phase(device)
-    raft_model, raft_serve = raft_serving_phase(device)
-    raft_frame = raft_frame_phase(raft_model, device)
+    raft_errs = phase("raft_parity", raft_parity_phase, device)
+    raft_model, raft_serve = phase("raft_serving", raft_serving_phase,
+                                   device)
+    raft_frame = phase("raft_frame", raft_frame_phase, raft_model, device)
     del raft_model
-    raft_epe = raft_eval_phase()
+    raft_epe = phase("raft_eval", raft_eval_phase)
     torch.cuda.empty_cache()
-    panoptic = dict(parity=panoptic_parity_phase(device),
-                    gate=panoptic_gate_phase(device))
+    panoptic = dict(parity=phase("panoptic_parity", panoptic_parity_phase,
+                                 device),
+                    gate=phase("panoptic_gate", panoptic_gate_phase, device))
     torch.cuda.empty_cache()
     for name in PANOPTIC_BATCH:
-        model, serve = panoptic_serving_phase(name, device)
-        serve["frame"] = panoptic_frame_phase(name, model, device)
+        model, serve = phase(f"panoptic_serving {name}",
+                             panoptic_serving_phase, name, device)
+        serve["frame"] = phase(f"panoptic_frame {name}",
+                               panoptic_frame_phase, name, model, device)
         panoptic[name] = serve
         del model
         torch.cuda.empty_cache()
-    panoptic["eval"] = panoptic_eval_phase()
+    panoptic["eval"] = phase("panoptic_eval", panoptic_eval_phase)
     torch.cuda.empty_cache()
-    panoptic_train = dict(gate=panoptic_train_gate_phase(device))
+    panoptic_train = dict(gate=phase("panoptic_train_gate",
+                                     panoptic_train_gate_phase, device))
     torch.cuda.empty_cache()
     for name in PANOPTIC_BATCH:
-        panoptic_train[name] = panoptic_train_phase(name, device)
+        panoptic_train[name] = phase(f"panoptic_train {name}",
+                                     panoptic_train_phase, name, device)
         torch.cuda.empty_cache()
-    raft_train = dict(gate=raft_train_gate_phase(device))
-    raft_train.update(raft_train_phase(device))
+    raft_train = dict(gate=phase("raft_train_gate", raft_train_gate_phase,
+                                 device))
+    raft_train.update(phase("raft_train", raft_train_phase, device))
     torch.cuda.empty_cache()
-    commands = train_commands_phase()
+    commands = phase("train_commands", train_commands_phase)
     torch.cuda.empty_cache()
-    bf16 = bf16_train_phase(device, dict(deformable=train, raft=raft_train))
+    bf16 = phase("bf16_train", bf16_train_phase, device,
+                 dict(deformable=train, raft=raft_train))
     bf16_msda = {"bf16_train": bf16["deformable"]["launches"][0],
                  "bf16_train_command": sum(
                      c["msda_launches"] for c in bf16["commands"].values())}
@@ -6020,24 +6434,35 @@ def main():
                      c["hungarian_launches"]
                      for c in bf16["commands"].values())}
     torch.cuda.empty_cache()
-    export = export_phase(device)
-    export["tiny"] = tiny_export_phase(device)
-    export["quantization"] = quantization_phase(device)
+    export = phase("export", export_phase, device)
+    export["tiny"] = phase("tiny_export", tiny_export_phase, device)
+    export["quantization"] = phase("quantization", quantization_phase,
+                                   device)
     torch.cuda.empty_cache()
-    geometry = geometry_phase(device)
+    geometry = phase("geometry", geometry_phase, device)
     torch.cuda.empty_cache()
-    coco = coco_disk_phase(device)
+    coco = phase("coco_disk", coco_disk_phase, device)
     torch.cuda.empty_cache()
-    flow_disk = flow_disk_phase(device)
+    flow_disk = phase("flow_disk", flow_disk_phase, device)
     torch.cuda.empty_cache()
-    kitti_waymo = kitti_waymo_disk_phase(device)
+    kitti_waymo = phase("kitti_waymo_disk", kitti_waymo_disk_phase, device)
     torch.cuda.empty_cache()
-    tracking = tracking_views_disk_phase(device)
+    tracking = phase("tracking_views_disk", tracking_views_disk_phase,
+                     device)
     crowd = tracking["crowd_human"]["launches"]
     tracking_msda = {"crowd_human_train": crowd["msda"],
                      "mot17_frame": tracking["mot17"]["msda_launches"]}
     torch.cuda.empty_cache()
-    parallel, par_msda, par_backward, par_hung = parallel_phase(device)
+    parallel, par_msda, par_backward, par_hung = phase(
+        "parallel", parallel_phase, device)
+    torch.cuda.empty_cache()
+    registry = phase("registry", registry_phase, device)
+    torch.cuda.empty_cache()
+    tutorials = phase("tutorials", tutorials_phase)
+    util_msda = {"profiling": profiling["launches"],
+                 "registry_eval": registry["launches"]}
+    print(f"phase seconds: { {k: round(v, 1) for k, v in seconds.items()} },"
+          f" {sum(seconds.values()):.1f} s in all")
     ms_train = coco["train"]["launches"]
     coco_msda = {"multiscale_train": ms_train[0],
                  "multiscale_eval": coco["eval"]["msda_launches"],
@@ -6068,7 +6493,7 @@ def main():
         "launches": launches + frame_launches + msda_train
         + sum(pan_msda.values()) + export_msda + sum(coco_msda.values())
         + sum(bf16_msda.values()) + sum(tracking_msda.values())
-        + sum(par_msda.values()),
+        + sum(par_msda.values()) + sum(util_msda.values()),
         "launches_by_path": {"fused_preprocess": launches,
                              "frame": frame_launches,
                              "train": msda_train, **pan_msda,
@@ -6076,7 +6501,10 @@ def main():
                              "export": export_msda, **coco_msda,
                              **bf16_msda, **tracking_msda,
                              # summed over the ranks of each run
-                             **par_msda},
+                             **par_msda,
+                             # cost_analysis's and trace's forwards, the
+                             # registry's eval_on_coco
+                             **util_msda},
         # the training path's backward: the gradient of the plain version,
         # recomputed by the operator's registered backward; the panoptic paths'
         # detector is frozen and takes none
@@ -6094,8 +6522,9 @@ def main():
             **errs, **coco["bucket_errs"],
             **tracking["mot17"]["msda_errs"],
             **parallel["msda_errs"]}.items() if "float32" in k),
-        "max_abs_err_bf16": max(v for k, v in {**errs, **coco["bucket_errs"]
-                                               }.items() if "bfloat16" in k),
+        "max_abs_err_bf16": max(v for k, v in {
+            **errs, **coco["bucket_errs"], **parallel["msda_errs"]}.items()
+            if "bfloat16" in k),
         # the largest multi-scale bucket's fp32 encoder call
         "largest_bucket": coco["largest_bucket"],
         "ms": enc["ms"], "ms_eager": enc["eager_ms"],
@@ -6176,8 +6605,13 @@ def main():
         "tracking_views_disk": tracking,
         # parallel/: two ranks on the card over gloo (DDP, sequence
         # parallel: the sp plans are the MSDA launches at Lq / 2), a world
-        # of one on NCCL (DDP, FSDP), the 8-rank CPU dry run
-        "parallel": parallel}))
+        # of one on NCCL (DDP, FSDP), bf16 under tp and FSDP, the 8-rank
+        # CPU dry run
+        "parallel": parallel,
+        # utils/profiling on the bf16 bs16 forward, the weights registry
+        # through eval_on_coco, the port's tutorials
+        "profiling": profiling, "registry": registry,
+        "tutorials": tutorials, "phase_seconds": seconds}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,8 @@ imports jax, flax, optax, orbax, the JAX package, OpenCV (which the card
 machine lacks) or scipy (the port keeps its own assignment solver), directly
 or inside a function; ``chip_smoke.py`` and the multi-rank tests' rank
 worker (``tests/torch_ranks.py``) import no jax, flax or JAX package (scipy
-is ``chip_smoke.py``'s Hungarian oracle)."""
+is ``chip_smoke.py``'s Hungarian oracle); nor do the port's tutorials
+(``tutorials/torch_*.py``), which import torch and the port only."""
 
 import ast
 from pathlib import Path
@@ -16,6 +17,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "aloception_tpu",
              "cv2", "scipy")
 SMOKE_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "aloception_tpu")
 SOURCES = sorted(PKG.rglob("*.py"))
+TUTORIALS = sorted((ROOT / "tutorials").glob("torch_*.py"))
 
 
 def _imported_roots(tree: ast.AST):
@@ -141,6 +143,26 @@ def test_parallel_modules_are_checked(module):
     """The parallel package's modules are among the sources checked
     below."""
     assert PKG / module in SOURCES
+
+
+@pytest.mark.parametrize("module", ["utils/profiling.py",
+                                    "utils/weights.py"])
+def test_utils_modules_are_checked(module):
+    """The profiling module and the weights registry are among the sources
+    checked below."""
+    assert PKG / module in SOURCES
+
+
+def test_tutorials_are_checked():
+    assert [p.name for p in TUTORIALS] == [
+        "torch_06_detr_inference.py", "torch_08_raft_optical_flow.py",
+        "torch_10_multichip_sharding.py", "torch_17_pipeline_parallelism.py"]
+
+
+@pytest.mark.parametrize("path", TUTORIALS, ids=lambda p: p.name)
+def test_tutorial_imports_no_jax(path):
+    roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))
+    assert not roots & set(FORBIDDEN), f"{path} imports {roots & set(FORBIDDEN)}"
 
 
 def test_rank_worker_imports_no_jax():

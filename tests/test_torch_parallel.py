@@ -13,8 +13,12 @@ and its multi-rank paths on spawned gloo ranks.
 - the commands' flags, and 2 processes under ``torchrun`` (one checkpoint
   directory, written by rank 0);
 - 8 ranks (``parallel.dryrun``): dp4 x tp2, FSDP on it, dp2 x sp2 x tp2 for
-  DETR and Deformable-DETR (refine), each loss within 1e-4 (relative) of
-  the replicated step, with the shards checked;
+  DETR and Deformable-DETR (refine) and FSDP on it, each loss within 1e-4
+  (relative) of the replicated step, and bf16 under dp4 x tp2 and FSDP
+  within ``dryrun.BF16_LOSS_TOL`` of the replicated bf16 step, with the
+  shards and the masters' placement checked;
+- bf16 under tp and FSDP through the command (``--bf16 --tp 2
+  --multihost``) and the Trainer (``fsdp=True``) on 2 ranks;
 - 2 ranks through ``Trainer.fit`` (DDP): tiny DETR and Deformable-DETR
   (refine, plain MSDA on the CPU), with unequal valid targets per rank,
   against the JAX package's jitted step on the global batch from the same
@@ -261,25 +265,27 @@ def test_commands_accept_the_parallel_flags(command, flags, monkeypatch):
 
 @pytest.mark.parametrize("how", ["train_on_coco --bf16 --tp 2",
                                  "Trainer fsdp bf16"])
-def test_placed_lower_precision_is_refused(how, monkeypatch, tmp_path):
-    """bf16 under tp or FSDP raises, whether the factories build the
-    optimizer (the command's ``--bf16``) or the caller does."""
+def test_placed_lower_precision_trains(how, monkeypatch, tmp_path):
+    """bf16 under tp or FSDP trains on 2 ranks, whether the factories build
+    the optimizer (the command's ``--bf16 --tp 2 --multihost``, its tiny
+    DETR at a feed-forward width that the tp rule places) or the Trainer
+    does (``fsdp=True, dtype=torch.bfloat16``): every step taken, finite
+    losses, equal on both ranks, the model in bfloat16 with placed
+    parameters, and placed masters in float32 (tp: the bfloat16 shards'
+    masters; FSDP: the float32 shards, cast where they are gathered)."""
     for var in ("ALO_COORDINATOR_ADDRESS", "ALO_NUM_PROCESSES",
                 "ALO_PROCESS_ID", "RANK", "WORLD_SIZE"):
         monkeypatch.delenv(var, raising=False)
+    # the command writes ~/.aloception_tpu/alonet_config.json
     monkeypatch.setenv("HOME", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="lower-precision"):
-        if how.startswith("train_on_coco"):
-            from aloception_tpu_torch.commands import train_on_coco
-            train_on_coco.main(["--cpu", "--sample", "--tiny", "--bf16",
-                                "--tp", "2", "--multihost", "--log_dir",
-                                str(tmp_path / "expe")])
-        else:
-            from aloception_tpu_torch.train import Trainer
-            Trainer(torch.nn.Linear(4, 4), lambda out, t: {},
-                    prepare_batch=lambda raw, training=True: raw,
-                    log_dir=str(tmp_path / "expe"), fsdp=True,
-                    dtype=torch.bfloat16)
+    r0, r1 = dryrun.spawn(2, torch_ranks.lower_precision_steps, how,
+                          str(tmp_path), timeout=300)
+    assert r0["step"] == r1["step"] == 2
+    assert r0["losses"] == r1["losses"] and np.isfinite(r0["losses"]).all()
+    assert "torch.bfloat16" in r0["dtypes"]
+    assert r0["placed"]
+    assert ("torch.float32", True) in r0["master_kinds"]
+    assert all(dt == "torch.float32" for dt, _ in r0["master_kinds"])
 
 
 def test_torchrun_two_processes_write_one_checkpoint_dir(tmp_path):
@@ -315,19 +321,23 @@ def eight_ranks():
 
 @pytest.mark.parametrize("tag", dryrun.PASSES)
 def test_placement_loss_matches_replicated(eight_ranks, tag):
-    model = "deformable" if tag.endswith("deformable") else "detr"
-    ref = eight_ranks[0]["replicated"][model]
+    """Every metric within 1e-4 (relative) of the replicated step's, a
+    bfloat16 pass's within ``dryrun.BF16_LOSS_TOL`` of the replicated
+    bfloat16 step's."""
+    ref = eight_ranks[0]["replicated"][dryrun.pass_model(tag)]
+    tol = dryrun.BF16_LOSS_TOL if tag.endswith("bf16") else 1e-4
     for res in eight_ranks:
         got = res[tag]["metrics"]
         assert set(got) == set(ref)
         for k, w in ref.items():
-            assert abs(got[k] - w) <= 1e-4 * max(1.0, abs(w)), (tag, k)
+            assert abs(got[k] - w) <= tol * max(1.0, abs(w)), (tag, k)
 
 
 @pytest.mark.parametrize("tag", dryrun.PASSES)
 def test_placement_is_real(eight_ranks, tag):
     """B / dp rows a rank; a tp parameter holds 1 / tp of its elements, an
-    FSDP one 1 / dp; all-reduces, and >= 2 collectives under tp."""
+    FSDP one 1 / dp (at sp 2 too); all-reduces, and >= 2 collectives under
+    tp; in bfloat16, float32 masters placed as their parameters."""
     dryrun.check([{"replicated": eight_ranks[0]["replicated"],
                    "dp_tp": r["dp_tp"], tag: r[tag]} for r in eight_ranks],
                  [])
@@ -335,7 +345,8 @@ def test_placement_is_real(eight_ranks, tag):
     assert got["rows"] == 8 // got["dp"]
     fracs = sorted({s for s, _ in got["shares"].values()})
     want = {"dp_tp": [0.5], "fsdp": [0.125, 0.25, 0.5],
-            "sp": [0.5], "sp_deformable": [0.5]}[tag]
+            "sp": [0.5], "sp_deformable": [0.5], "fsdp_sp": [0.25, 0.5],
+            "dp_tp_bf16": [0.5], "fsdp_bf16": [0.125, 0.25, 0.5]}[tag]
     assert fracs == want, fracs
 
 
