@@ -9,9 +9,13 @@ images: half-pixel centres, no antialiasing), titles and labels are drawn
 by ``text.put_text`` (what OpenCV 5's ``putText`` draws), ``View.save``
 writes a PNG with Pillow (the pixels ``cv2.imwrite`` stores) and
 ``method="matplotlib"`` shows a view through matplotlib where it is
-installed. Two things need OpenCV and are refused with the reason: the
-display window (``cv2.imshow``) and the mp4 recording
-(``cv2.VideoWriter``, an MPEG-4 encoder).
+installed. ``Renderer.render(..., record_file=, fps=)`` appends each grid to
+an mp4 as the JAX renderer's ``cv2.VideoWriter(*"mp4v")`` does, through the
+port's own MPEG-4 Part 2 intra encoder (``video.Mp4Writer``: the frame
+``(grid * 255)`` truncated to uint8, cropped to even sizes; a grid of
+another size than the first raises ``ValueError`` where cv2 drops it), and
+``save()`` finalizes it. The display window (``cv2.imshow``) needs a GUI
+toolkit and is refused with the reason.
 """
 
 from __future__ import annotations
@@ -26,13 +30,11 @@ from PIL import Image
 
 from ..spatial import resize_bilinear
 from .text import put_text
+from .video import Mp4Writer
 
 NO_WINDOW = ("the PyTorch port has no display window (the JAX renderer "
              "shows views with cv2.imshow); save a view with View.save or "
              "use method='matplotlib'")
-NO_RECORDING = ("the PyTorch port cannot record an mp4 (the JAX renderer "
-                "encodes it with cv2.VideoWriter's MPEG-4 codec, which the "
-                "port does not have); save each grid with View(grid).save")
 
 
 def put_adaptive_cv2_text(frame: np.ndarray, text: str, x: int, y: int,
@@ -126,8 +128,12 @@ def _pyplot():
 
 
 class Renderer:
-    """(renderer.py:172) grid compositing; the display window and the mp4
-    recording are refused (``NO_WINDOW``, ``NO_RECORDING``)."""
+    """(renderer.py:172) grid compositing and the mp4 recording; the
+    display window is refused (``NO_WINDOW``)."""
+
+    def __init__(self):
+        self._writer: Optional[Mp4Writer] = None
+        self._path: Optional[str] = None
 
     @staticmethod
     def _title_banner(img: np.ndarray, title: str) -> np.ndarray:
@@ -188,24 +194,35 @@ class Renderer:
                fps: int = 30, grid_size=None, skip_views: bool = False,
                add_title: bool = True) -> np.ndarray:
         """(renderer.py:311) the grid of ``views`` (a flat list, or a
-        nested list of rows); a recording or a window raises."""
+        nested list of rows), appended to the mp4 ``record_file`` at ``fps``
+        when one is given (the first call opens it at this grid's size and
+        ``fps``; later calls append, whatever they name), else shown (only
+        ``renderer="matplotlib"``: the window raises) unless
+        ``skip_views``."""
         if views and isinstance(views[0], (list, tuple)):
             grid = self.get_user_defined_grid_view(views, add_title)
         else:
             grid = self.get_grid_view(views, cell_grid_size, grid_size,
                                       add_title)
         if record_file is not None:
-            raise RuntimeError(NO_RECORDING)
-        if not skip_views:
+            if self._writer is None:
+                self._writer = Mp4Writer(record_file, fps, grid.shape[:2])
+                self._path = record_file
+            self._writer.write((grid * 255).astype(np.uint8))
+        elif not skip_views:
             if renderer != View.MATPLOTLIB:
                 raise RuntimeError(NO_WINDOW)
             View(grid).render(View.MATPLOTLIB)
         return grid
 
-    def save(self):
-        """(renderer.py:363) the recording's path: None, the port records
-        none."""
-        return None
+    def save(self) -> Optional[str]:
+        """(renderer.py:363) finalize the recording and return its path
+        (None if nothing was recorded); the next recording starts a new
+        file."""
+        if self._writer is not None:
+            self._writer.release()
+            self._writer = None
+        return self._path
 
 
 _module_renderer: Optional[Renderer] = None
@@ -215,7 +232,8 @@ def render(views: Sequence[View], renderer: str = "cv", size=None,
            record_file: Optional[str] = None, fps=30, grid_size=None,
            skip_views=False):
     """Module-level convenience (aloscene/__init__.py:33) over one
-    persistent Renderer."""
+    persistent Renderer, so that calls with ``record_file`` append to one
+    mp4 until ``render_save``."""
     global _module_renderer
     if _module_renderer is None:
         _module_renderer = Renderer()
@@ -227,7 +245,7 @@ def render(views: Sequence[View], renderer: str = "cv", size=None,
 
 def render_save():
     """Finalize the module-level renderer, returning its recording's path
-    (None: the port records no mp4)."""
+    (None if it recorded nothing)."""
     global _module_renderer
     if _module_renderer is None:
         return None

@@ -2,7 +2,8 @@
 // native size, from a file or from memory, the bilinear resize + normalize
 // of the batch loader into caller-owned float buffers, cv2's fixed-point
 // bilinear resize of uint8 images, the polygon fill of COCO segmentations
-// and the thick lines and rectangles of the views.
+// and the thick lines and rectangles of the views, and the bit packer of
+// the recording's MPEG-4 Part 2 intra VOPs.
 //
 // Counterpart of aloception_tpu/runtime/aloloader.cpp (threaded decode +
 // resize + normalize), which links libjpeg and libpng. The machine that
@@ -44,6 +45,10 @@
 //   alo_line(img, h, w, c, x1, y1, x2, y2, color, thickness) and
 //   alo_rectangle(...): cv2.line and cv2.rectangle (LINE_8, thickness >= 2)
 //     on an (h, w, c) uint8 image.
+//   alo_mpeg4_intra_vop(levels, mb_w, mb_h, qp, seconds, increment,
+//     increment_bits, tables, out, cap) -> bytes written, or -1 if more
+//     than cap: one I-VOP of ISO/IEC 14496-2 (aloscene/renderer/video.py
+//     says what it codes and lays out the tables).
 
 #include <zlib.h>
 
@@ -1065,6 +1070,172 @@ void resize_linear_u8(const uint8_t* src, int h, int w, int c, uint8_t* dst,
   }
 }
 
+// ---- MPEG-4 Part 2 intra VOPs (ISO/IEC 14496-2) --------------------------
+// The packed tables of aloscene/renderer/video.py (packed_tables): each
+// entry is code << 8 | length, 0 where TCOEF has no code.
+const int kMcbpc = 0, kCbpy = 4, kDcLum = 20, kDcChrom = 33, kTcoef = 46;
+const int kMaxLevel = 32;
+
+struct Bits {
+  uint8_t* out;
+  int64_t cap, n = 0;
+  uint64_t acc = 0;  // the bits not yet written, in its low `held` bits
+  int held = 0;
+
+  void put(uint32_t value, int len) {  // len <= 32
+    acc = (acc << len) | (value & ((uint64_t(1) << len) - 1));
+    held += len;
+    while (held >= 8) {
+      held -= 8;
+      if (n < cap) out[n] = uint8_t(acc >> held);
+      ++n;
+    }
+  }
+  void code(uint32_t entry) { put(entry >> 8, int(entry & 0xFF)); }
+  // next_start_code(): a 0, then 1s to the byte
+  void stuff() {
+    put(0, 1);
+    if (held) put((1u << (8 - held)) - 1, 8 - held);
+  }
+};
+
+int bit_length(int v) {
+  int n = 0;
+  for (; v; v >>= 1) ++n;
+  return n;
+}
+
+struct Tcoef {
+  const uint32_t* t;
+  int lmax[2][64], rmax[2][kMaxLevel];
+
+  explicit Tcoef(const uint32_t* tables) : t(tables + kTcoef) {
+    for (int last = 0; last < 2; ++last) {
+      for (int l = 0; l < kMaxLevel; ++l) rmax[last][l] = -1;
+      for (int run = 0; run < 64; ++run) {
+        lmax[last][run] = 0;
+        for (int l = 1; l < kMaxLevel; ++l)
+          if (at(last, run, l)) {
+            lmax[last][run] = l;
+            rmax[last][l] = std::max(rmax[last][l], run);
+          }
+      }
+    }
+  }
+  uint32_t at(int last, int run, int level) const {
+    return t[(last * 64 + run) * kMaxLevel + level];
+  }
+  // one (last, run, level) event: the table, else escape 1 (level - LMAX),
+  // escape 2 (run - RMAX - 1) or escape 3 (fixed length)
+  void event(Bits* b, int last, int run, int level) const {
+    const int lv = std::abs(level), sign = level < 0;
+    const int lm = lmax[last][run];
+    const int rm = lv < kMaxLevel ? rmax[last][lv] : -1;
+    const int run2 = rm >= 0 ? run - rm - 1 : -1;
+    const uint32_t esc = 0x3 << 8 | 7;  // 0000011
+    if (lv <= lm) {
+      b->code(at(last, run, lv));
+    } else if (lm && lv - lm <= lm) {
+      b->code(esc);
+      b->put(0, 1);
+      b->code(at(last, run, lv - lm));
+    } else if (run2 >= 0 && lv <= lmax[last][run2]) {
+      b->code(esc);
+      b->put(2, 2);
+      b->code(at(last, run2, lv));
+    } else {
+      b->code(esc);
+      b->put(3, 2);
+      b->put(last, 1);
+      b->put(run, 6);
+      b->put(1, 1);
+      b->put(level & 0xFFF, 12);
+      b->put(1, 1);
+      return;
+    }
+    b->put(sign, 1);
+  }
+};
+
+int dc_scaler(int qp, bool luminance) {
+  if (qp <= 4) return 8;
+  if (luminance) return qp <= 8 ? 2 * qp : qp <= 24 ? qp + 8 : 2 * qp - 16;
+  return qp <= 24 ? (qp + 13) / 2 : qp - 6;
+}
+
+// levels: (mb_h * mb_w, 6, 64) int16, zig-zag order, each block's quantised
+// DC first; the macroblocks across, then down.
+int64_t intra_vop(const int16_t* levels, int mb_w, int mb_h, int qp,
+                  int seconds, int increment, int increment_bits,
+                  const uint32_t* tables, uint8_t* out, int64_t cap) {
+  Bits b{out, cap};
+  const Tcoef tcoef(tables);
+  b.put(0x1B6, 32);
+  b.put(0, 2);  // vop_coding_type: I
+  for (int s = 0; s < seconds; ++s) b.put(1, 1);  // modulo_time_base
+  b.put(0, 1);
+  b.put(1, 1);
+  b.put(uint32_t(increment), increment_bits);
+  b.put(1, 1);
+  b.put(1, 1);  // vop_coded
+  b.put(0, 3);  // intra_dc_vlc_thr: the DC VLC everywhere
+  b.put(uint32_t(qp), 5);
+  const int scale[2] = {dc_scaler(qp, true), dc_scaler(qp, false)};
+  // reconstructed DCs by plane, with a border row and column of 1024
+  const int lw = 2 * mb_w + 1, cw = mb_w + 1;
+  std::vector<int> dcs[3] = {
+      std::vector<int>(size_t(lw) * (2 * mb_h + 1), 1024),
+      std::vector<int>(size_t(cw) * (mb_h + 1), 1024),
+      std::vector<int>(size_t(cw) * (mb_h + 1), 1024)};
+  for (int m = 0; m < mb_w * mb_h; ++m) {
+    const int r = m / mb_w, c = m % mb_w;
+    const int16_t* mb = levels + size_t(m) * 6 * 64;
+    bool coded[6];
+    for (int k = 0; k < 6; ++k) {
+      coded[k] = false;
+      for (int i = 1; i < 64; ++i) coded[k] |= mb[k * 64 + i] != 0;
+    }
+    b.code(tables[kMcbpc + coded[4] * 2 + coded[5]]);
+    b.put(0, 1);  // ac_pred_flag
+    b.code(tables[kCbpy + coded[0] * 8 + coded[1] * 4 + coded[2] * 2 +
+                  coded[3]]);
+    for (int k = 0; k < 6; ++k) {
+      const int16_t* blk = mb + k * 64;
+      const bool lum = k < 4;
+      const int br = lum ? 2 * r + k / 2 : r, bc = lum ? 2 * c + k % 2 : c;
+      const int w = lum ? lw : cw;
+      int* f = dcs[lum ? 0 : k - 3].data();
+      // the block sits at (br + 1, bc + 1): row and column 0 are the border
+      const int fa = f[(br + 1) * w + bc], fb = f[br * w + bc],
+                fc = f[br * w + bc + 1];
+      const int pred = std::abs(fa - fb) < std::abs(fb - fc) ? fc : fa;
+      const int s = scale[lum ? 0 : 1];
+      const int diff = blk[0] - (pred + s / 2) / s;
+      f[(br + 1) * w + bc + 1] = blk[0] * s;
+      const int size = bit_length(std::abs(diff));
+      b.code(tables[(lum ? kDcLum : kDcChrom) + size]);
+      if (size) {
+        b.put(uint32_t(diff > 0 ? diff : diff - 1), size);
+        if (size > 8) b.put(1, 1);
+      }
+      if (!coded[k]) continue;
+      int last_nz = 63;
+      while (!blk[last_nz]) --last_nz;
+      int run = 0;
+      for (int i = 1; i <= last_nz; ++i) {
+        if (!blk[i]) {
+          ++run;
+          continue;
+        }
+        tcoef.event(&b, i == last_nz, run, blk[i]);
+        run = 0;
+      }
+    }
+  }
+  b.stuff();
+  return b.n <= cap ? b.n : -1;
+}
+
 void set_error(char* err, int errlen, const std::string& msg) {
   if (err && errlen > 0) {
     snprintf(err, size_t(errlen), "%s", msg.c_str());
@@ -1167,6 +1338,14 @@ void alo_rectangle(uint8_t* img, int h, int w, int c, int64_t x1, int64_t y1,
     thick_line(cv, p0, pt[i], thickness, 2);
     p0 = pt[i];
   }
+}
+
+int64_t alo_mpeg4_intra_vop(const int16_t* levels, int mb_w, int mb_h,
+                            int qp, int seconds, int increment,
+                            int increment_bits, const uint32_t* tables,
+                            uint8_t* out, int64_t cap) {
+  return intra_vop(levels, mb_w, mb_h, qp, seconds, increment,
+                   increment_bits, tables, out, cap);
 }
 
 }  // extern "C"

@@ -32,6 +32,8 @@ pool) run in parallel.
 - ``fill_poly``: ``cv2.fillPoly(mask, [xy], 1)`` on a uint8 mask.
 - ``resize_linear_u8``: ``cv2.resize(img, (W, H), INTER_LINEAR)`` of a
   uint8 image, bit for bit (cv2's fixed-point path).
+- ``alo_mpeg4_intra_vop`` (no wrapper here): the bit packer of the
+  renderer's mp4 recording (``aloscene/renderer/video.py::pack_vop``).
 """
 
 from __future__ import annotations
@@ -119,6 +121,9 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int] + [ctypes.c_int64] * 4 + [
                            ctypes.c_void_p, ctypes.c_int]
+    lib.alo_mpeg4_intra_vop.restype = ctypes.c_int64
+    lib.alo_mpeg4_intra_vop.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
     return lib
 
 

@@ -244,11 +244,17 @@
     through ``norm_resnet`` -> resize (800/1333) -> the trained detector
     in eval mode -> ``inference`` (12 MSDA launches an item), a Renderer
     grid of the ground-truth and predicted views over T saved and read
-    back; WoodScape (966x1280, one frame a camera, boxes and gtLabels)
+    back, and every item's 1170x1920 grid recorded through
+    ``Renderer.render(record_file=, fps=30)`` into one mp4 (the port's
+    MPEG-4 Part 2 intra encoder), read back by the port's box reader (7
+    samples, all sync, each the packer's VOP of its frame) and each
+    frame's reconstruction held against its grid (luma PSNR >= 40 dB);
+    WoodScape (966x1280, one frame a camera, boxes and gtLabels)
     through ``WooDScapeSplitDataset``; ``Frame.get_view`` of the frames on
     the card, the boxes', masks' and the KITTI scene's 3-D boxes' views,
-    each equal to the CPU's; read, prepare, step, device-busy, view and
-    grid times beside the card's name and power limit.
+    each equal to the CPU's; read, prepare, step, device-busy, view,
+    grid and encode times, the recording's bytes a frame and PSNRs beside
+    the card's name and power limit.
 23. ``parallel/`` (``parallel_phase``; no kernel of its own, the MSDA and
     Hungarian kernels launched on every rank): Deformable-DETR-R50-refine
     (float32, TF32 off, dropout 0) at 640x640 through ``Trainer.fit``, as
@@ -5288,6 +5294,8 @@ CROWD_VAL_HW = ((1600, 2400), (720, 1280)) * 2
 CROWD_BATCH, CROWD_STEPS, CROWD_VAL_BATCHES = 2, 4, 2
 MOT_FRAMES, MOT_HW = 8, (1080, 1920)                  # MOT17-02's frames
 MOT_GRID_CELL = (540, 960)
+MOT_FPS = 30                                          # MOT17-02's rate
+MOT_LUMA_DB = 40.0        # tests/test_torch_video.py's luma bound (LUMA_DB)
 WOODSCAPE_HW = (966, 1280)
 VIEW_REPEATS = 3
 
@@ -5479,11 +5487,84 @@ def crowd_human_train_step(device, root, smi):
     return model, out
 
 
+def mot17_recording(grids_of, n, smi):
+    """Record ``n`` grids (``grids_of(k)``: the views of item ``k``) with
+    ``Renderer.render(..., record_file=, fps=MOT_FPS)`` into one mp4, as the
+    JAX renderer records predictions. The file is read back with the port's
+    box reader: a sample a frame, each a sync sample and each the VOP the
+    packer makes of its frame's levels; each frame's reconstruction is held
+    against its grid over luma at MOT_LUMA_DB. Times ``Mp4Writer.write``
+    (the encode, on the host)."""
+    import numpy as np
+    import tempfile
+    from aloception_tpu_torch.aloscene.renderer import Renderer, video
+
+    t0 = time.perf_counter()
+    pictures, write_s = [], []
+    encode, write = video.encode_intra, video.Mp4Writer.write
+
+    def keep(rgb, qp):
+        pictures.append(encode(rgb, qp))
+        return pictures[-1]
+
+    def timed(self, frame):
+        t = time.perf_counter()
+        write(self, frame)
+        write_s.append(time.perf_counter() - t)
+
+    r = Renderer()
+    with tempfile.TemporaryDirectory() as d, \
+            mock.patch.object(video, "encode_intra", keep), \
+            mock.patch.object(video.Mp4Writer, "write", timed):
+        path = os.path.join(d, "mot17_predictions.mp4")
+        grids = [(r.render(grids_of(k), cell_grid_size=MOT_GRID_CELL,
+                           record_file=path, fps=MOT_FPS) * 255
+                  ).astype(np.uint8) for k in range(n)]
+        if r.save() != path:
+            raise AssertionError("Renderer.save named another file")
+        mp4 = video.read_mp4(path)
+        nbytes = os.path.getsize(path)
+    h, w = mp4.size
+    if (len(mp4.samples), mp4.sync, mp4.fps, (h, w)) != (
+            n, list(range(1, n + 1)), MOT_FPS, grids[0].shape[:2]):
+        raise AssertionError(f"the MOT17 recording: {len(mp4.samples)} "
+                             f"samples, sync {mp4.sync}, {mp4.fps} fps, "
+                             f"{h}x{w}")
+    luma, rgb = [], []
+    res, inc = video.time_base(MOT_FPS)
+    for k, (g, pic) in enumerate(zip(grids, pictures)):
+        if mp4.samples[k] != video.pack_vop(pic.levels, pic.mb_size,
+                                            video.QP,
+                                            video.vop_time(k, res, inc)):
+            raise AssertionError(f"the MOT17 recording's sample {k} is not "
+                                 "the VOP of its frame")
+        luma.append(video.psnr(pic.y, video.luma_of_rgb(g)))
+        rgb.append(video.psnr(video.rgb_of_ycbcr(pic.y, pic.cb, pic.cr), g))
+    if min(luma) < MOT_LUMA_DB:
+        raise AssertionError(f"the MOT17 recording's reconstruction: luma "
+                             f"PSNR {min(luma):.2f} dB < {MOT_LUMA_DB}")
+    out = dict(frames=n, size=(h, w), bytes=nbytes,
+               mb_per_frame=nbytes / n / 1e6,
+               encode_ms=sum(write_s) / n * 1e3, psnr_luma=luma,
+               psnr_rgb=rgb, qp=video.QP,
+               seconds=time.perf_counter() - t0)
+    print(f"  MOT17 recording [{smi}]: {n} frames of {h}x{w} at {MOT_FPS} "
+          f"fps, QP {video.QP}: {out['mb_per_frame']:.4f} MB a frame "
+          f"({nbytes} bytes in all), encode (Mp4Writer.write, host) "
+          f"{out['encode_ms']:.1f} ms a frame; reconstruction against the "
+          f"grid: luma PSNR min {min(luma):.2f} dB (bound {MOT_LUMA_DB}), "
+          f"RGB PSNR min {min(rgb):.2f} dB; {n} samples, all sync, each "
+          f"the packer's VOP of its frame; {out['seconds']:.1f} s with the "
+          "grids and the checks")
+    return out
+
+
 def mot17_step(model, device, smi):
     """MOT17 T=2 items -> ``norm_resnet`` -> resize (the 800/1333 rule) ->
     the detector (eval mode) -> ``inference``; a Renderer grid of the
     ground-truth and predicted views over T saved as PNG and read back; the
-    card's views against the CPU's from the same fetched predictions."""
+    card's views against the CPU's from the same fetched predictions; every
+    item's grid recorded into an mp4 (``mot17_recording``)."""
     import numpy as np
     from aloception_tpu_torch.aloscene.renderer import Renderer, View
     from aloception_tpu_torch.alodataset import Mot17, Split
@@ -5551,14 +5632,18 @@ def mot17_step(model, device, smi):
                   "path's own inputs")
     del calls
 
-    def grid(item, pred):
-        cells = []
+    def cells(item, pred):
+        out = []
         for t_ in range(item.shape[0]):
             frame = item[t_]
-            cells.append(frame.get_view(title=f"gt t={t_}"))
-            cells.append(pred[t_].get_view(
+            out.append(frame.get_view(title=f"gt t={t_}"))
+            out.append(pred[t_].get_view(
                 frame=frame.__get_view__().image, title=f"pred t={t_}"))
-        return Renderer.get_grid_view(cells, cell_grid_size=MOT_GRID_CELL)
+        return out
+
+    def grid(item, pred):
+        return Renderer.get_grid_view(cells(item, pred),
+                                      cell_grid_size=MOT_GRID_CELL)
     card_item = items[0].to(device)
     card, grid_ms = _timed_views(lambda: grid(card_item, preds[0]))
     cpu = grid(items[0], [p.cpu() for p in preds[0]])
@@ -5568,6 +5653,8 @@ def mot17_step(model, device, smi):
         path = View(card).save(os.path.join(d, "mot17_grid"))
         _same_image(decode(path).numpy(), (card * 255).astype(np.uint8),
                     "the saved grid")
+    recording = mot17_recording(
+        lambda k: cells(items[k].to(device), preds[k]), len(items), smi)
     n_dets = sum(len(b) for p in preds for b in p)
     print(f"  MOT17 [{smi}]: {len(items)} T=2 items of {H}x{W} (a read "
           f"{read_ms:.1f} ms) -> {size} -> Deformable-DETR eval fp32: "
@@ -5576,7 +5663,7 @@ def mot17_step(model, device, smi):
           f"{MOT_GRID_CELL} {grid_ms:.1f} ms, saved and read back equal")
     return dict(read_item_ms=read_ms, forward_ms=forward_ms,
                 msda_launches=launches, grid_ms=grid_ms, detections=n_dets,
-                msda_errs=errs)
+                msda_errs=errs, recording=recording)
 
 
 def woodscape_views_step(device, smi):
@@ -6545,9 +6632,12 @@ def _tutorial_checks(num, res):
     if num in ("03", "04", "11"):
         return {k: v for k, v in res.items() if k != "pixels"}, True
     if num == "05":
-        return ({"grid": res["grid shape"], "saved": len(res["stream"])},
-                len(res["stream"]) == 8 and all(
-                    os.path.getsize(p) > 0 for p in res["stream"]))
+        from aloception_tpu_torch.aloscene.renderer.video import read_mp4
+        clip = read_mp4(res["clip"])
+        return ({"grid": res["grid shape"], "clip_bytes": res["clip bytes"],
+                 "clip_frames": len(clip.samples), "clip_fps": clip.fps},
+                clip.sync == list(range(1, 9)) and clip.fps == 4
+                and res["clip bytes"] == os.path.getsize(res["clip"]))
     if num == "06":
         return {"boxes": [len(b) for b in res]}, \
             len(res) == 2 and all(len(b) and b.array.is_cuda for b in res)

@@ -124,7 +124,8 @@ def test_flow_kitti_waymo_modules_are_checked(module):
 @pytest.mark.parametrize("module", [
     "aloscene/renderer/__init__.py", "aloscene/renderer/renderer.py",
     "aloscene/renderer/draw.py", "aloscene/renderer/text.py",
-    "aloscene/renderer/colormap.py", "alodataset/mot17.py",
+    "aloscene/renderer/colormap.py", "aloscene/renderer/video.py",
+    "alodataset/mot17.py",
     "alodataset/crowd_human.py", "alodataset/woodscape.py",
     "utils/tracking_fixture.py", "train/callbacks.py",
     "export/production/model_handler.py"])

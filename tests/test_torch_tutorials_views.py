@@ -5,11 +5,14 @@ and every grid of the stream held at ``tests/test_torch_views.py``'s
 tolerances: boxes and flow bit-equal, masks within 1e-6, label and title
 text by bounding box (1 px) and IoU (0.9). Each tutorial runs twice, with
 text and without (neither package drawing it), which tells the text's
-pixels apart. Where the JAX tutorial 05 records its stream of grids to an
-mp4 (``cv2.VideoWriter``, here a stand-in that keeps the frames), the port
-saves each grid as a PNG and prints why it records none."""
+pixels apart. Tutorial 05 records its stream of grids to an mp4: JAX's
+``cv2.VideoWriter`` is a stand-in here that keeps the frames it is given,
+and the port's clip, written by its own encoder, is read back by cv2."""
+
+import os
 
 import numpy as np
+import pytest
 
 from torch_tutorials import (held_printed, held_view, load, record_views,
                              redirect_jax_writes)
@@ -43,26 +46,39 @@ def held_views(num, on, off):
 
 
 def test_05_rendering(capsys, monkeypatch, tmp_path):
-    from aloception_tpu_torch.aloscene.renderer.renderer import NO_RECORDING
+    cv2 = pytest.importorskip("cv2")
     want, got, res, on, recorded = run_pair("05", capsys, monkeypatch,
                                             tmp_path, True)
-    assert held_printed(got, want, skip_port=("no mp4:", "saved:"),
+    assert held_printed(got, want, skip_port=("recorded:",),
                         skip_jax=("recorded:",)) == 2
-    assert f"no mp4: {NO_RECORDING}" in got
+    clip = str(tmp_path / "port_True" / "clip.mp4")
+    assert res["clip"] == clip
+    assert f"recorded: {clip} {os.path.getsize(clip)} bytes" in got
     _, _, _, off, _ = run_pair("05", capsys, monkeypatch, tmp_path, False)
     assert held_views("05", on, off) == 3
-    # the stream: 8 grids recorded by JAX, 8 saved by the port
+    # the stream: 8 grids recorded by each package, the same grids
     assert len(recorded["frames"]) == len(on["jax_grids"]) == 8
-    assert len(on["port_grids"]) == 8 and len(res["stream"]) == 8
+    assert len(on["port_grids"]) == 8
     for k in range(8):
-        name = f"clip_{k}.png"
-        np.testing.assert_array_equal(on["port"][name], on["port_grids"][k])
         held_view(on["port_grids"][k], off["port_grids"][k],
-                  on["jax_grids"][k], off["jax_grids"][k], 1e-6, tag=name)
+                  on["jax_grids"][k], off["jax_grids"][k], 1e-6,
+                  tag=f"grid {k}")
         # what JAX hands its video writer: the grid as uint8 BGR
         np.testing.assert_array_equal(
             recorded["frames"][k],
             (on["jax_grids"][k][..., ::-1] * 255).astype(np.uint8))
+    # the port's clip decodes to JAX's frame count and even-cropped size
+    cap = cv2.VideoCapture(clip)
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame)
+    cap.release()
+    h, w = (s & ~1 for s in recorded["frames"][0].shape[:2])
+    assert len(frames) == len(recorded["frames"])
+    assert {f.shape for f in frames} == {(h, w, 3)}
 
 
 def test_12_custom_views(capsys, monkeypatch, tmp_path):

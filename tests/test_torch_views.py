@@ -33,7 +33,7 @@ import aloception_tpu.aloscene as J
 import aloception_tpu_torch.aloscene as P
 from aloception_tpu.aloscene import renderer as jr
 from aloception_tpu_torch.aloscene import renderer as pr
-from aloception_tpu_torch.aloscene.renderer import draw
+from aloception_tpu_torch.aloscene.renderer import draw, video
 
 HW = (96, 128)
 NAMES = ("person", "car", "bicycle", "dog", "traffic_light")
@@ -156,15 +156,24 @@ def test_grids_equal_jax(add_title, resize):
             assert iou >= 0.9 and side <= 1
 
 
-def test_module_render_and_save():
+def test_module_render_and_save(tmp_path):
+    """The module-level renderer as JAX's: a grid of the same shape, nothing
+    recorded until a ``record_file`` is given, then one mp4 that ``render``
+    appends to (showing no window) and ``render_save`` names; the window
+    alone is refused."""
     rng = np.random.RandomState(4)
     views = [pr.View(rng.uniform(0, 1, (20, 30, 3)), "a")]
     grid = pr.render(views, skip_views=True)
     want = jr.render([jr.View(views[0].image, "a")], skip_views=True)
     assert grid.shape == want.shape
-    assert pr.render_save() is None
-    with pytest.raises(RuntimeError, match="mp4"):
-        pr.render(views, record_file="out.mp4")
+    assert pr.render_save() is None and jr.render_save() is None
+    path = str(tmp_path / "out.mp4")
+    for _ in range(2):
+        np.testing.assert_array_equal(pr.render(views, record_file=path),
+                                      grid)
+    assert pr.render_save() == path
+    mp4 = video.read_mp4(path)
+    assert len(mp4.samples) == 2 and mp4.size == grid.shape[:2]
     with pytest.raises(RuntimeError, match="window"):
         pr.render(views)
     with pytest.raises(RuntimeError, match="window"):

@@ -4,10 +4,9 @@ tutorials/4.0-rendering.py … 4.3-get_view_flow.py).
 
 Every aloscene type knows how to draw itself: frame.get_view() recursively
 composites the frame and all attached labels (boxes, masks, flow as a color
-wheel, depth as a colormap). Views combine into grids and save as PNGs.
-The JAX renderer also records a stream of grids to an mp4 with OpenCV's
-MPEG-4 encoder, which the port does not have: here each grid of the
-stream is saved as a PNG of its own (``renderer.NO_RECORDING`` says why).
+wheel, depth as a colormap). Views combine into grids, save as PNGs and
+record straight to mp4 (the port's own MPEG-4 Part 2 encoder,
+``aloscene/renderer/video.py``, where the JAX renderer uses OpenCV's).
 
 Runs on the CUDA card; ``main("cpu")`` (or ``--cpu``) runs it on the CPU.
 
@@ -51,7 +50,6 @@ def main(device=None, out_dir=None):
 
     from aloception_tpu_torch.aloscene import Flow
     from aloception_tpu_torch.aloscene.renderer import Renderer, View
-    from aloception_tpu_torch.aloscene.renderer.renderer import NO_RECORDING
     from aloception_tpu_torch.models.transformers import entry_device
 
     device = entry_device(device)
@@ -82,19 +80,15 @@ def main(device=None, out_dir=None):
     out["grid shape"] = grid.shape
     print("grid:", grid.shape)
 
-    # --- a stream of grids: Renderer.render(..., record_file=...) records
-    # an mp4 in the JAX package; the port saves each grid instead
+    # --- streaming/recording: Renderer.render(..., record_file=...) --------
     r = Renderer()
-    out["stream"] = []
+    mp4 = os.path.join(out_dir, "clip.mp4")
     for t in range(8):                  # 8 synthetic 'video' frames
-        g = r.render([make_frame(rng, device, t).get_view()],
-                     skip_views=True)
-        out["stream"].append(View(g).save(
-            os.path.join(out_dir, f"clip_{t}.png")))
-    out["no recording"] = NO_RECORDING
-    print("no mp4:", NO_RECORDING)
-    print("saved:", len(out["stream"]), "grids ->",
-          os.path.join(out_dir, "clip_*.png"))
+        r.render([make_frame(rng, device, t).get_view()], renderer="record",
+                 record_file=mp4, fps=4)
+    out["clip"] = r.save()
+    out["clip bytes"] = os.path.getsize(mp4)
+    print("recorded:", mp4, out["clip bytes"], "bytes")
     return out
 
 
