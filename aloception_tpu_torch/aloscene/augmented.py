@@ -22,6 +22,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 def as_tensor(x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Tensor of ``x``: tensors keep their device and dtype (unless ``dtype``
@@ -406,12 +408,13 @@ class AugmentedArray:
 
     def resize(self, size: Tuple[int, int], **kwargs):
         """Resize to absolute (H, W); children receive the relative ratio."""
-        h, w = size
-        size01 = (h / self.H, w / self.W)
-        resized = self._resize(size01, **kwargs)
-        resized.recursive_apply_on_children(
-            lambda c: _child_op(c, "_resize", size01, **kwargs))
-        return resized
+        with span("alo.aug.resize"):
+            h, w = size
+            size01 = (h / self.H, w / self.W)
+            resized = self._resize(size01, **kwargs)
+            resized.recursive_apply_on_children(
+                lambda c: _child_op(c, "_resize", size01, **kwargs))
+            return resized
 
     def rotate(self, angle: float, center=None, **kwargs):
         """Rotate by ``angle`` degrees counter-clockwise around ``center``

@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from .augmented import const
 from .spatial import SpatialAugmentedArray
 
@@ -29,31 +30,34 @@ class Frame(SpatialAugmentedArray):
                  points3d=None, depth=None, pose=None, scene_flow=None,
                  normalization: str = "255", mean_std: Optional[Tuple] = None,
                  names=("C", "H", "W"), **kwargs):
-        if isinstance(x, str):
-            from .io.image import load_image
-            x = load_image(x)
-        super().__init__(x, names=names, **kwargs)
-        for name, value, mergeable in (
-                ("points2d", points2d, False), ("points3d", points3d, False),
-                ("boxes2d", boxes2d, False), ("boxes3d", boxes3d, False),
-                ("flow", flow, False), ("disparity", disparity, True),
-                ("depth", depth, True), ("segmentation", segmentation, False),
-                ("labels", labels, True), ("pose", pose, True),
-                ("scene_flow", scene_flow, False)):
-            self.add_child(name, value, align_dim=["B", "T"],
-                           mergeable=mergeable)
+        with span("alo.frame.init"):
+            if isinstance(x, str):
+                from .io.image import load_image
+                x = load_image(x)
+            super().__init__(x, names=names, **kwargs)
+            for name, value, mergeable in (
+                    ("points2d", points2d, False),
+                    ("points3d", points3d, False),
+                    ("boxes2d", boxes2d, False), ("boxes3d", boxes3d, False),
+                    ("flow", flow, False), ("disparity", disparity, True),
+                    ("depth", depth, True),
+                    ("segmentation", segmentation, False),
+                    ("labels", labels, True), ("pose", pose, True),
+                    ("scene_flow", scene_flow, False)):
+                self.add_child(name, value, align_dim=["B", "T"],
+                               mergeable=mergeable)
 
-        if mean_std is not None:
-            mean_std = (tuple(mean_std[0]), tuple(mean_std[1]))
-        if normalization in ("255", "01", "minmax_sym"):
             if mean_std is not None:
-                raise ValueError(f"normalization '{normalization}' takes no "
-                                 "mean_std")
-        elif mean_std is None:
-            raise ValueError(f"named normalization '{normalization}' requires "
-                             "mean_std")
-        self.add_property("normalization", normalization)
-        self.add_property("mean_std", mean_std)
+                mean_std = (tuple(mean_std[0]), tuple(mean_std[1]))
+            if normalization in ("255", "01", "minmax_sym"):
+                if mean_std is not None:
+                    raise ValueError(f"normalization '{normalization}' "
+                                     "takes no mean_std")
+            elif mean_std is None:
+                raise ValueError(f"named normalization '{normalization}' "
+                                 "requires mean_std")
+            self.add_property("normalization", normalization)
+            self.add_property("mean_std", mean_std)
 
     def append_boxes2d(self, boxes, name=None):
         self._append_child("boxes2d", boxes, name)
@@ -145,13 +149,15 @@ class Frame(SpatialAugmentedArray):
                          "minmax_sym")
 
     def mean_std_norm(self, mean, std, name: str) -> "Frame":
-        t = self
-        mean, std = tuple(mean), tuple(std)
-        if t.mean_std is not None and t.mean_std == (mean, std):
-            return t.clone()
-        t01 = t if t.normalization == "01" else t.norm01()
-        mean_a, std_a = t01._mean_std_arrays((mean, std))
-        return t01._renorm((t01.array - mean_a) / std_a, name, (mean, std))
+        with span("alo.frame.norm_resnet"):
+            t = self
+            mean, std = tuple(mean), tuple(std)
+            if t.mean_std is not None and t.mean_std == (mean, std):
+                return t.clone()
+            t01 = t if t.normalization == "01" else t.norm01()
+            mean_a, std_a = t01._mean_std_arrays((mean, std))
+            return t01._renorm((t01.array - mean_a) / std_a, name,
+                               (mean, std))
 
     def norm_resnet(self) -> "Frame":
         return self.mean_std_norm(*RESNET_MEAN_STD, name="resnet")

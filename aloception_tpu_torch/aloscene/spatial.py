@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from .augmented import AugmentedArray
 from .labels import Labels
 
@@ -151,43 +152,46 @@ class SpatialAugmentedArray(AugmentedArray):
         (H, W), or to ``size=(H, W)``, stack them on a new B dim and attach
         a ``Mask`` (1 = padded). A dict (or list of dicts) of frame lists is
         batched per key."""
-        from .mask import Mask
+        with span("alo.spatial.batch_list"):
+            from .mask import Mask
 
-        if isinstance(sa_arrays, dict) or (
-                len(sa_arrays) and isinstance(sa_arrays[0], dict)):
-            if isinstance(sa_arrays, list):  # list of dicts -> dict of lists
-                keys = sa_arrays[0].keys()
-                sa_arrays = {k: [d[k] for d in sa_arrays] for k in keys}
-            return {k: SpatialAugmentedArray.batch_list(
-                v, pad_boxes=pad_boxes, pad_points2d=pad_points2d,
-                intersection=intersection, size=size)
-                for k, v in sa_arrays.items()}
+            if isinstance(sa_arrays, dict) or (
+                    len(sa_arrays) and isinstance(sa_arrays[0], dict)):
+                if isinstance(sa_arrays, list):
+                    # list of dicts -> dict of lists
+                    keys = sa_arrays[0].keys()
+                    sa_arrays = {k: [d[k] for d in sa_arrays] for k in keys}
+                return {k: SpatialAugmentedArray.batch_list(
+                    v, pad_boxes=pad_boxes, pad_points2d=pad_points2d,
+                    intersection=intersection, size=size)
+                    for k, v in sa_arrays.items()}
 
-        frames = [f for f in sa_arrays if f is not None]
-        if not frames:
-            raise ValueError("batch_list needs at least one frame")
-        max_h = max(f.H for f in frames)
-        max_w = max(f.W for f in frames)
-        if size is not None:
-            if size[0] < max_h or size[1] < max_w:
-                raise ValueError(f"batch_list size {size} smaller than batch "
-                                 f"max ({max_h}, {max_w})")
-            max_h, max_w = int(size[0]), int(size[1])
+            frames = [f for f in sa_arrays if f is not None]
+            if not frames:
+                raise ValueError("batch_list needs at least one frame")
+            max_h = max(f.H for f in frames)
+            max_w = max(f.W for f in frames)
+            if size is not None:
+                if size[0] < max_h or size[1] < max_w:
+                    raise ValueError(f"batch_list size {size} smaller than "
+                                     f"batch max ({max_h}, {max_w})")
+                max_h, max_w = int(size[0]), int(size[1])
 
-        padded, masks = [], []
-        for f in frames:
-            pf = f.batch().pad((0, max_h - f.H), (0, max_w - f.W),
-                               pad_boxes=pad_boxes, pad_points2d=pad_points2d)
-            padded.append(pf)
-            m = torch.ones(_mask_shape(pf), dtype=torch.float32,
-                           device=pf.device)
-            m[pf.get_slices({"H": slice(None, f.H),
-                             "W": slice(None, f.W)})] = 0.0
-            masks.append(m)
+            padded, masks = [], []
+            for f in frames:
+                pf = f.batch().pad((0, max_h - f.H), (0, max_w - f.W),
+                                   pad_boxes=pad_boxes,
+                                   pad_points2d=pad_points2d)
+                padded.append(pf)
+                m = torch.ones(_mask_shape(pf), dtype=torch.float32,
+                               device=pf.device)
+                m[pf.get_slices({"H": slice(None, f.H),
+                                 "W": slice(None, f.W)})] = 0.0
+                masks.append(m)
 
-        out = _cat_batched(padded, intersection=intersection)
-        out.append_mask(Mask(torch.cat(masks, 0), names=padded[0]._names))
-        return out
+            out = _cat_batched(padded, intersection=intersection)
+            out.append_mask(Mask(torch.cat(masks, 0), names=padded[0]._names))
+            return out
 
     @staticmethod
     def temporal_list(sa_arrays: List["SpatialAugmentedArray"]):

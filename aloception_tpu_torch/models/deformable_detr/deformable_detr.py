@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...aloscene import BoundingBoxes2D
+from ...utils.profiling import span
 from ..backbone.resnet import Backbone
 from ..detr.detr import boxes_per_image
 from ..detr.detr import inference as detr_inference
@@ -118,7 +119,8 @@ class DeformableDETR(nn.Module):
         (its projected map after GroupNorm, NHWC) and feat_mask; bb_outputs
         and bb_masks (layer1-3, fine to coarse, NHWC)."""
         dtype = self.query_embed.weight.dtype
-        feats = self.backbone[0](images.to(dtype), mask)
+        with span("alo.model.backbone"):
+            feats = self.backbone[0](images.to(dtype), mask)
         srcs, masks = [], []
         for lvl, (f, m) in enumerate(feats[-3:]):     # C3, C4, C5
             srcs.append(self.input_proj[lvl](f.permute(0, 3, 1, 2)))
@@ -131,10 +133,10 @@ class DeformableDETR(nn.Module):
             m, num_pos_feats=self.hidden_dim // 2, center=True, dtype=dtype)
             for m in masks]
 
-        hs, init_reference, inter_references, memory, spatial_shapes, _ = \
-            self.transformer(
-                [s.permute(0, 2, 3, 1) for s in srcs], masks, pos_embeds,
-                self.query_embed.weight)
+        with span("alo.model.transformer"):
+            hs, init_reference, inter_references, memory, spatial_shapes, _ \
+                = self.transformer([s.permute(0, 2, 3, 1) for s in srcs],
+                                   masks, pos_embeds, self.query_embed.weight)
 
         all_logits, all_boxes = [], []
         for lvl in range(self.num_decoder_layers):
@@ -209,6 +211,7 @@ def inference(m_outputs: Dict, threshold: float = 0.2,
         return detr_inference(
             m_outputs, threshold=threshold,
             background_class=m_outputs["pred_logits"].shape[-1] - 1)
-    scores, labels = m_outputs["pred_logits"].float().sigmoid().max(-1)
-    return boxes_per_image(m_outputs["pred_boxes"], labels, scores,
-                           scores > threshold)
+    with span("alo.model.inference"):
+        scores, labels = m_outputs["pred_logits"].float().sigmoid().max(-1)
+        return boxes_per_image(m_outputs["pred_boxes"], labels, scores,
+                               scores > threshold)

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ...aloscene import BoundingBoxes2D, Labels
+from ...utils.profiling import span
 from ..backbone.resnet import Backbone
 from ..transformers import (MLP, entry_device, init_parameters,
                             position_embedding_sine)
@@ -72,17 +73,19 @@ class Detr(nn.Module):
         enc_outputs (B, H, W, C), proj_src (B, H, W, C), bb_outputs and
         bb_masks (layer1-3, fine to coarse, NHWC) and feat_mask (B, H, W)."""
         dtype = self.query_embed.weight.dtype
-        feats = self.backbone[0](images.to(dtype), mask)
+        with span("alo.model.backbone"):
+            feats = self.backbone[0](images.to(dtype), mask)
         src, feat_mask = feats[-1]
         src = self.input_proj(src.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         pos = position_embedding_sine(feat_mask,
                                       num_pos_feats=self.hidden_dim // 2,
                                       dtype=dtype)
         B, H, W, C = src.shape
-        hs, memory = self.transformer(src.reshape(B, H * W, C),
-                                      pos.reshape(B, H * W, C),
-                                      self.query_embed.weight,
-                                      feat_mask.reshape(B, H * W))
+        with span("alo.model.transformer"):
+            hs, memory = self.transformer(src.reshape(B, H * W, C),
+                                          pos.reshape(B, H * W, C),
+                                          self.query_embed.weight,
+                                          feat_mask.reshape(B, H * W))
         logits = self.class_embed(hs)                  # (L, B, Nq, C + 1)
         boxes = torch.sigmoid(self.bbox_embed(hs))     # (L, B, Nq, 4)
         out = {"pred_logits": logits[-1], "pred_boxes": boxes[-1]}
@@ -161,6 +164,8 @@ def inference(m_outputs: Dict, threshold: float = 0.0,
     """Model outputs -> per image ``BoundingBoxes2D`` + ``Labels``: a query
     is kept when its argmax class is not the background class and its
     softmax score exceeds ``threshold``."""
-    boxes, labels, scores, keep = inference_arrays(m_outputs,
-                                                   background_class)
-    return boxes_per_image(boxes, labels, scores, keep & (scores > threshold))
+    with span("alo.model.inference"):
+        boxes, labels, scores, keep = inference_arrays(m_outputs,
+                                                       background_class)
+        return boxes_per_image(boxes, labels, scores,
+                               keep & (scores > threshold))

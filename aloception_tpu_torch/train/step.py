@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from ..models.detr.criterion import detr_criterion
+from ..utils.profiling import span
 from .state import TrainOptimizer
 
 
@@ -53,12 +54,16 @@ def make_train_step(model: nn.Module, optimizer: TrainOptimizer,
     def step(inputs: Sequence[torch.Tensor], targets: Dict
              ) -> Tuple[List[str], torch.Tensor]:
         model.train()
-        out = to_float32(model(*inputs, **kwargs))
-        loss, metrics = criterion(out, targets)
-        optimizer.backward(loss)
-        if after_backward is not None:
-            after_backward()
-        metrics["grad_norm"] = optimizer.step()
+        with span("alo.trainer.forward"):
+            out = to_float32(model(*inputs, **kwargs))
+        with span("alo.trainer.criterion"):
+            loss, metrics = criterion(out, targets)
+        with span("alo.trainer.backward"):
+            optimizer.backward(loss)
+            if after_backward is not None:
+                after_backward()
+        with span("alo.trainer.optimizer"):
+            metrics["grad_norm"] = optimizer.step()
         return pack_metrics(metrics)
 
     return step

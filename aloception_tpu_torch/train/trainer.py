@@ -52,6 +52,7 @@ from torch import nn
 from ..parallel.distributed import broadcast_object, is_main_process
 from ..parallel.mesh import make_mesh, mesh_shape, use_mesh
 from ..parallel.shard import data_parallel, full_tensors, shard_batch
+from ..utils.profiling import span
 from .callbacks import Callback, MetricsCallback
 from .checkpoint import CheckpointManager
 from .experiment import get_expe_infos
@@ -180,21 +181,8 @@ class Trainer:
             for i, raw in enumerate(train_loader):
                 if self.limit_train_batches and i >= self.limit_train_batches:
                     break
-                prepared = self.prepare_batch(raw)
-                inputs = to_device(shard_batch(prepared["inputs"], self.mesh),
-                                   self.device)
-                targets = to_device(
-                    shard_batch(prepared["targets"], self.mesh), self.device)
-                keys, packed = self.train_step(inputs, targets)
-                if self.mesh is not None:
-                    # each rank's share averages to the global batch's
-                    dist.all_reduce(packed)
-                    packed = packed / dist.get_world_size()
-                self.global_step += 1
-                # the batch's one host synchronisation
-                metrics = dict(zip(keys, packed.cpu().tolist()))
-                for cb in self.callbacks:
-                    cb.on_train_batch_end(self, metrics, self.global_step)
+                with span("alo.trainer.step"):
+                    self._train_batch(raw)
                 if max_steps and self.global_step >= max_steps:
                     break
                 if (self.val_check_interval and val_loader is not None
@@ -215,6 +203,29 @@ class Trainer:
                 break
         self.logger.flush()
         return self.model
+
+    def _train_batch(self, raw):
+        """One train batch: prepared on the host, copied to the card,
+        stepped, its metrics fetched and handed to the callbacks."""
+        with span("alo.trainer.prepare_batch"):
+            prepared = self.prepare_batch(raw)
+        with span("alo.trainer.to_device"):
+            inputs = to_device(shard_batch(prepared["inputs"], self.mesh),
+                               self.device)
+            targets = to_device(shard_batch(prepared["targets"], self.mesh),
+                                self.device)
+        keys, packed = self.train_step(inputs, targets)
+        self.global_step += 1
+        with span("alo.trainer.fetch"):
+            if self.mesh is not None:
+                # each rank's share averages to the global batch's
+                dist.all_reduce(packed)
+                packed = packed / dist.get_world_size()
+            # the batch's one host synchronisation
+            metrics = dict(zip(keys, packed.cpu().tolist()))
+        with span("alo.trainer.callbacks"):
+            for cb in self.callbacks:
+                cb.on_train_batch_end(self, metrics, self.global_step)
 
     def validate(self, val_loader) -> Dict[str, float]:
         for i, raw in enumerate(val_loader):

@@ -1,6 +1,7 @@
 """Profiling (counterpart of ``aloception_tpu/utils/profiling.py``): a trace
-of a block's activity on the host and the card, and the cost of a function
-(operations, bytes, transcendentals) with its roofline position.
+of a block's activity on the host and the card, the program's named spans
+inside it, and the cost of a function (operations, bytes, transcendentals)
+with its roofline position.
 
 The JAX package traces with ``jax.profiler`` and reads XLA's cost model of
 the compiled program. Here ``trace`` runs ``torch.profiler`` and
@@ -17,6 +18,12 @@ import tempfile
 from typing import Callable, Dict
 
 import torch
+
+# what ``span`` returns when no profiler records: one shared, stateless
+# context, so that a span costs a flag check
+_NO_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_is_compiling = torch.compiler.is_compiling
 
 # the ATen operators whose every output element counts as a transcendental
 TRANSCENDENTAL_OPS = ("exp", "log", "tanh", "sigmoid", "erf", "sin", "cos",
@@ -39,6 +46,19 @@ def trace(log_dir: str = os.path.join(tempfile.gettempdir(),
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(log_dir)):
         yield log_dir
+
+
+def span(name: str):
+    """A named range of the program (``alo.<layer>.<part>``) for the block
+    it opens: ``torch.profiler.record_function(name)`` while a profiler
+    records, so that the range sits on the profiler's clock beside the
+    card's kernels and copies (``trace`` writes it into its file), and
+    otherwise, or while ``torch.compile`` or ``torch.export`` traces, one
+    shared no-op context: a span then costs one flag check and records
+    nothing into a graph."""
+    if _is_compiling() or not _profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def _bytes_of(tree) -> int:
