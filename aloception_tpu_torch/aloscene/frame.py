@@ -12,15 +12,31 @@ decodes an image file with ``runtime.decode`` (CHW RGB, "255").
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from ..utils.profiling import span
-from .augmented import const
 from .spatial import SpatialAugmentedArray
 
 RESNET_MEAN_STD = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+
+
+def _mean_std_key(mean_std) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
+    return tuple(mean_std[0]), tuple(mean_std[1])
+
+
+@functools.lru_cache(maxsize=16)
+def _mean_std_consts(mean_std, device: torch.device):
+    """float32 (mean, std, (0 - mean) / std) of a mean/std norm on
+    ``device``, one value a channel: made once per norm and device, outside
+    inference mode so that autograd may save them."""
+    with torch.inference_mode(False):
+        mean, std = (torch.tensor(v, dtype=torch.float32).to(
+            device, non_blocking=True) for v in mean_std)
+        Frame._mean_std_arrays.made += 2
+        return mean, std, (0.0 - mean) / std
 
 
 class Frame(SpatialAugmentedArray):
@@ -97,11 +113,19 @@ class Frame(SpatialAugmentedArray):
     # ------------------------------------------------------------------
     def _mean_std_arrays(self, mean_std) -> Tuple[torch.Tensor, torch.Tensor]:
         """float32 mean and std on the payload's device, shaped to broadcast
-        over its C dim."""
+        over its C dim: views of tensors made once per ``mean_std`` and
+        device (``_mean_std_arrays.made`` counts the tensors made). No
+        caller writes into them."""
+        mean, std, _ = _mean_std_consts(_mean_std_key(mean_std), self.device)
+        shape = self._channel_shape()
+        return mean.reshape(shape), std.reshape(shape)
+
+    _mean_std_arrays.made = 0
+
+    def _channel_shape(self):
         n_shape = [1] * self.ndim
-        n_shape[self.dim_idx("C")] = len(mean_std[0])
-        return (const(mean_std[0], self.array).reshape(n_shape),
-                const(mean_std[1], self.array).reshape(n_shape))
+        n_shape[self.dim_idx("C")] = self.size("C")
+        return n_shape
 
     def _renorm(self, array, normalization, mean_std=None) -> "Frame":
         n = self._with_array(array)
@@ -195,14 +219,17 @@ class Frame(SpatialAugmentedArray):
     _PAD_VALUES = {"01": 0.0, "255": 0.0, "minmax_sym": -1.0}
 
     def _pad(self, offset_y, offset_x, **kwargs):
+        return self._padded(offset_y, offset_x, self._pad_fill())
+
+    def _pad_fill(self):
         """Padded pixels hold black in the frame's normalization; for a
-        mean/std norm that is (0 - mean) / std per channel."""
+        mean/std norm that is (0 - mean) / std per channel, in float32."""
         if self.normalization in self._PAD_VALUES:
-            return self._padded(offset_y, offset_x,
-                                self._PAD_VALUES[self.normalization])
+            return self._PAD_VALUES[self.normalization]
         if self.mean_std is not None:
-            mean, std = self._mean_std_arrays(self.mean_std)
-            return self._padded(offset_y, offset_x, (0.0 - mean) / std)
+            fill = _mean_std_consts(_mean_std_key(self.mean_std),
+                                    self.device)[2]
+            return fill.reshape(self._channel_shape())
         raise ValueError(f"_pad unsupported for normalization "
                          f"{self.normalization}")
 

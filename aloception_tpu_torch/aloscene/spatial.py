@@ -4,12 +4,13 @@
 Camera-calibration child slots, stereo properties, H/W helpers, temporal/batch
 dim insertion, ``batch_list`` (pad to the batch's largest frame or a fixed
 size, plus the padded-area ``Mask``) and the spatial geometric ops. Ops are
-named-dim driven, so CHW and HWC layouts both work. Batching concatenates on
-the frames' device and builds the mask there.
+named-dim driven, so CHW and HWC layouts both work. Batching writes the
+frames into one buffer on the first frame's device and builds the mask there.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -18,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.profiling import span
-from .augmented import AugmentedArray
+from .augmented import AugmentedArray, _child_op
 from .labels import Labels
 
 
@@ -151,7 +152,16 @@ class SpatialAugmentedArray(AugmentedArray):
         """Pad every frame at the bottom and right to the batch's largest
         (H, W), or to ``size=(H, W)``, stack them on a new B dim and attach
         a ``Mask`` (1 = padded). A dict (or list of dicts) of frame lists is
-        batched per key."""
+        batched per key.
+
+        The batch is written in place into one buffer on the first frame's
+        device: when some frame is smaller than its slot, the frames' pad
+        value (``_pad_fill``) goes over the whole buffer once (slot by slot
+        where the frames' values differ), then each frame's pixels are
+        copied into their slot; the mask is ones with each frame's region
+        set to 0, or zeros when no frame is padded. Children are batched
+        and padded as ``pad`` pads them, on the frames that have any, and
+        merged as ``_cat_batched`` merges them."""
         with span("alo.spatial.batch_list"):
             from .mask import Mask
 
@@ -169,28 +179,65 @@ class SpatialAugmentedArray(AugmentedArray):
             frames = [f for f in sa_arrays if f is not None]
             if not frames:
                 raise ValueError("batch_list needs at least one frame")
-            max_h = max(f.H for f in frames)
-            max_w = max(f.W for f in frames)
+            hw = [f.HW for f in frames]
+            max_h = max(h for h, _ in hw)
+            max_w = max(w for _, w in hw)
             if size is not None:
                 if size[0] < max_h or size[1] < max_w:
                     raise ValueError(f"batch_list size {size} smaller than "
                                      f"batch max ({max_h}, {max_w})")
                 max_h, max_w = int(size[0]), int(size[1])
 
-            padded, masks = [], []
-            for f in frames:
-                pf = f.batch().pad((0, max_h - f.H), (0, max_w - f.W),
-                                   pad_boxes=pad_boxes,
-                                   pad_points2d=pad_points2d)
-                padded.append(pf)
-                m = torch.ones(_mask_shape(pf), dtype=torch.float32,
-                               device=pf.device)
-                m[pf.get_slices({"H": slice(None, f.H),
-                                 "W": slice(None, f.W)})] = 0.0
-                masks.append(m)
+            f0 = frames[0]
+            props, same = _merged_properties(frames, intersection)
+            names = f0._names if "B" in f0._names else ("B",) + f0._names
+            axis = names.index("B")
+            items = [f.size("B") if "B" in f._names else 1 for f in frames]
+            shape = list(f0.shape)
+            if "B" not in f0._names:
+                shape.insert(0, 1)
+            shape[axis] = sum(items)
+            shape[names.index("H")], shape[names.index("W")] = max_h, max_w
+            dtype = functools.reduce(torch.promote_types,
+                                     {f.dtype for f in frames})
+            out = f0._with_array(
+                torch.empty(shape, dtype=dtype, device=f0.device), names)
+            if "C" in names:
+                shape[names.index("C")] = 1
+            padded = any(s != (max_h, max_w) for s in hw)
+            mask = (torch.ones if padded else torch.zeros)(
+                shape, dtype=torch.float32, device=f0.device)
 
-            out = _cat_batched(padded, intersection=intersection)
-            out.append_mask(Mask(torch.cat(masks, 0), names=padded[0]._names))
+            slots, start = [], 0
+            for f, n in zip(frames, items):
+                slots.append(start if "B" not in f._names
+                             else slice(start, start + n))
+                start += n
+            if padded and same and all(type(f) is type(f0) for f in frames):
+                out.array[...] = f0._pad_fill()
+            elif padded:
+                for f, s, (h, w) in zip(frames, slots, hw):
+                    if (h, w) != (max_h, max_w):
+                        out.array[out.get_slices({"B": s})] = f._pad_fill()
+            for f, s, (h, w) in zip(frames, slots, hw):
+                idx = out.get_slices({"B": s, "H": slice(None, h),
+                                      "W": slice(None, w)})
+                slot = out.array[idx]
+                if slot.shape != f.array.shape:
+                    raise ValueError(
+                        f"batch_list: a frame of shape {f.shape} does not "
+                        f"fit the batch's {out.shape}")
+                slot.copy_(f.array)
+                if padded:
+                    mask[idx].fill_(0.0)
+
+            out._properties = props
+            out._children = _merged_children(
+                [_children_padded(f, max_h, max_w, pad_boxes=pad_boxes,
+                                  pad_points2d=pad_points2d)
+                 if any(c is not None for c in f._children.values()) else f
+                 for f in frames], intersection, axis)
+            out.append_mask(Mask(mask, names=names))
             return out
 
     @staticmethod
@@ -282,6 +329,11 @@ class SpatialAugmentedArray(AugmentedArray):
 
     def _pad(self, offset_y, offset_x, fill: float = 0.0, **kwargs):
         return self._padded(offset_y, offset_x, fill)
+
+    def _pad_fill(self):
+        """What ``batch_list`` pads with: a scalar, or a tensor that
+        broadcasts over the payload."""
+        return 0.0
 
     def _shifted(self, shift_y: float, shift_x: float, fill):
         """Roll the payload and fill the uncovered band with ``fill``."""
@@ -505,25 +557,46 @@ def _fixed_map(inv, H, W, dev):
     return X >> 5, Y >> 5, (X & 31).float() / 32, (Y & 31).float() / 32
 
 
-def _mask_shape(frame: SpatialAugmentedArray) -> Tuple[int, ...]:
-    shape = list(frame.shape)
-    if "C" in frame._names:
-        shape[frame.dim_idx("C")] = 1
-    return tuple(shape)
+def _children_padded(frame: SpatialAugmentedArray, max_h: int, max_w: int,
+                     **kwargs):
+    """``frame.batch().pad((0, max_h - H), (0, max_w - W), **kwargs)`` for
+    the children alone: a copy of the batched frame whose children are
+    padded, its payload left as it was."""
+    fb = frame.batch() if "B" not in frame._names \
+        else frame._with_array(frame.array)
+    offset_y = (0.0, (max_h - frame.H) / frame.H)
+    offset_x = (0.0, (max_w - frame.W) / frame.W)
+    ck = fb._children_op_kwargs("_pad", kwargs)
+    fb.recursive_apply_on_children(
+        lambda c: _child_op(c, "_pad", offset_y, offset_x, **ck))
+    return fb
 
 
 def _cat_batched(frames: List[SpatialAugmentedArray],
                  intersection: bool = False, axis_name: str = "B"):
     """Concatenate same-shape batched frames along a named axis, merging
-    children: mergeable children are concatenated, unmergeable become
-    per-item lists."""
+    properties (``_merged_properties``) and children
+    (``_merged_children``)."""
     f0 = frames[0]
     axis = f0.dim_idx(axis_name)
     out = f0._with_array(torch.cat([f.array for f in frames], axis))
+    out._properties = _merged_properties(frames, intersection)[0]
+    out._children = _merged_children(frames, intersection, axis)
+    return out
 
-    # properties: equal values survive; differing values -> None (or error)
+
+def _merged_properties(frames: List[AugmentedArray], intersection: bool
+                       ) -> Tuple[Dict[str, Any], bool]:
+    """(the batch's properties, whether every frame's equal the first's).
+    Equal values survive; a differing value becomes None with
+    ``intersection``, and raises otherwise."""
+    f0 = frames[0]
     props = dict(f0._properties)
+    same = True
     for f in frames[1:]:
+        if f._properties == f0._properties:
+            continue
+        same = False
         for k, v in f._properties.items():
             if props.get(k) != v:
                 if not intersection:
@@ -531,8 +604,14 @@ def _cat_batched(frames: List[SpatialAugmentedArray],
                         f"batch_list: property '{k}' differs across tensors "
                         f"({props.get(k)} vs {v}); pass intersection=True")
                 props[k] = None
-    out._properties = props
+    return props, same
 
+
+def _merged_children(frames: List[AugmentedArray], intersection: bool,
+                     axis: int) -> Dict[str, Any]:
+    """The batch's children: mergeable children are concatenated along
+    ``axis``, unmergeable ones become per-item lists."""
+    f0 = frames[0]
     child_names = set(f0._children)
     for f in frames[1:]:
         child_names &= set(f._children)
@@ -562,8 +641,7 @@ def _cat_batched(frames: List[SpatialAugmentedArray],
                                 for k in vals[0]}
         else:
             n_children[name] = _merge_children(vals, axis)
-    out._children = n_children
-    return out
+    return n_children
 
 
 def _items(vals) -> List[Any]:
