@@ -30,6 +30,7 @@ from torch import nn
 from ...aloscene import Flow
 from ...ops.correlation import CorrPyramid, corr_pyramid, corr_volume
 from ...ops.warp import coords_grid
+from ...utils.profiling import span
 from ..transformers import entry_device, init_parameters
 from .extractor import BasicEncoder, SmallEncoder
 from .update import BasicUpdateBlock, SmallUpdateBlock
@@ -59,6 +60,9 @@ def convex_upsample(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 class RAFTBase(nn.Module):
     """Frames (B, 3, H, W) in ``minmax_sym`` normalisation, H and W
     multiples of 8."""
+
+    #: update steps run by every RAFT model in the process, on either path
+    update_steps = 0
 
     def __init__(self, hidden_dim: int = 128, context_dim: int = 128,
                  corr_levels: int = 4, corr_radius: int = 4,
@@ -91,17 +95,20 @@ class RAFTBase(nn.Module):
         starts the coordinates away from the identity."""
         dtype = self.fnet.conv1.weight.dtype
         B = frame1.shape[0]
-        fmaps = self.fnet(torch.cat([frame1, frame2]).to(dtype)).float()
-        c = self.cnet(frame1.to(dtype))
-        net = torch.tanh(c[:, :self.hidden_dim]).float()
-        # the context feeds convs only: in the model's dtype, as they take it
-        inp = torch.relu(c[:, self.hidden_dim:])
+        with span("alo.raft.encoders"):
+            fmaps = self.fnet(torch.cat([frame1, frame2]).to(dtype)).float()
+            c = self.cnet(frame1.to(dtype))
+            net = torch.tanh(c[:, :self.hidden_dim]).float()
+            # the context feeds convs only: in the model's dtype, as they
+            # take it
+            inp = torch.relu(c[:, self.hidden_dim:])
 
-        levels = corr_pyramid(corr_volume(fmaps[:B], fmaps[B:]),
-                              self.corr_levels)
-        if only_last:
-            levels = [lvl.to(dtype) for lvl in levels]
-        pyramid = CorrPyramid(levels)
+        with span("alo.raft.corr"):
+            levels = corr_pyramid(corr_volume(fmaps[:B], fmaps[B:]),
+                                  self.corr_levels)
+            if only_last:
+                levels = [lvl.to(dtype) for lvl in levels]
+            pyramid = CorrPyramid(levels)
         H8, W8 = fmaps.shape[-2:]
         # channels-last like the convs' outputs the flow is concatenated with
         coords0 = coords_grid(H8, W8, device=fmaps.device).expand(
@@ -110,16 +117,21 @@ class RAFTBase(nn.Module):
 
         def step(net, coords1, with_mask):
             coords1 = coords1.detach()
-            corr = pyramid.lookup(coords1, self.corr_radius)
-            net, mask, delta = self.update_block(
-                net, inp, corr.to(dtype), (coords1 - coords0).to(dtype),
-                with_mask=with_mask)
-            return net, coords1 + delta.float(), mask
+            with span("alo.raft.lookup"):
+                corr = pyramid.lookup(coords1, self.corr_radius)
+            with span("alo.raft.update"):
+                net, mask, delta = self.update_block(
+                    net, inp, corr.to(dtype), (coords1 - coords0).to(dtype),
+                    with_mask=with_mask)
+                coords1 = coords1 + delta.float()
+            RAFTBase.update_steps += 1
+            return net, coords1, mask
 
         def upsample(coords1, mask):
-            flow = coords1 - coords0
-            return upflow8(flow) if mask is None \
-                else convex_upsample(flow, mask.float())
+            with span("alo.raft.upsample"):
+                flow = coords1 - coords0
+                return upflow8(flow) if mask is None \
+                    else convex_upsample(flow, mask.float())
 
         if only_last:
             for _ in range(iters - 1):
@@ -171,5 +183,6 @@ def raft_small(dtype: torch.dtype = torch.float32, device=None,
 def inference(flows: Union[torch.Tensor, List[torch.Tensor]]) -> List[Flow]:
     """The final flow prediction (B, 2, H, W), or the last of a list, ->
     one ``Flow`` (C, H, W) per image, on the flow's device."""
-    final = flows[-1] if isinstance(flows, (list, tuple)) else flows
-    return [Flow(f) for f in final.float()]
+    with span("alo.model.inference"):
+        final = flows[-1] if isinstance(flows, (list, tuple)) else flows
+        return [Flow(f) for f in final.float()]

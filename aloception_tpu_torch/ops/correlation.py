@@ -48,6 +48,9 @@ class CorrPyramid:
     into one (B, N, sum Hl*Wl) buffer in their dtype, with each level's
     scale, size and offset in it on the buffer's device."""
 
+    #: lookups called in the process, over every pyramid
+    lookups = 0
+
     def __init__(self, levels: Sequence[torch.Tensor]):
         B, N = levels[0].shape[:2]
         self.flat = torch.cat([lvl.reshape(B, N, -1) for lvl in levels], 2)
@@ -69,7 +72,8 @@ class CorrPyramid:
         strides). Channel l * d^2 + i * d + j of level l samples
         (x / 2^l + off[i], y / 2^l + off[j]), off = -r..r: the x offset on
         the outer axis, as the reference's converted ``convc1`` weights
-        expect."""
+        expect. Each call adds one to ``CorrPyramid.lookups``."""
+        CorrPyramid.lookups += 1
         B, _, H, W = coords.shape
         off = torch.arange(-radius, radius + 1, dtype=torch.float32,
                            device=coords.device)

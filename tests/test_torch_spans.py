@@ -26,7 +26,8 @@ SPANS = {
     "alo.trainer.optimizer", "alo.trainer.fetch", "alo.trainer.callbacks",
     "alo.frame.init", "alo.frame.norm_resnet", "alo.aug.resize",
     "alo.spatial.batch_list", "alo.model.backbone", "alo.model.transformer",
-    "alo.model.inference"}
+    "alo.model.inference", "alo.raft.encoders", "alo.raft.corr",
+    "alo.raft.lookup", "alo.raft.update", "alo.raft.upsample"}
 #: The labels that the port's benchmark puts around the program from
 #: outside (wrappers and forward hooks): a span never takes one of them.
 BENCHMARK_LABELS = {"frame path", "model", "backbone", "transformer",
