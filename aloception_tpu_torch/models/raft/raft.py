@@ -118,10 +118,11 @@ class RAFTBase(nn.Module):
         def step(net, coords1, with_mask):
             coords1 = coords1.detach()
             with span("alo.raft.lookup"):
-                corr = pyramid.lookup(coords1, self.corr_radius)
+                # in the convolutions' dtype, as the update block takes it
+                corr = pyramid.lookup(coords1, self.corr_radius, dtype)
             with span("alo.raft.update"):
                 net, mask, delta = self.update_block(
-                    net, inp, corr.to(dtype), (coords1 - coords0).to(dtype),
+                    net, inp, corr, (coords1 - coords0).to(dtype),
                     with_mask=with_mask)
                 coords1 = coords1 + delta.float()
             RAFTBase.update_steps += 1

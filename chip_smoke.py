@@ -66,7 +66,20 @@
    falls over 10 steps on one repeated batch.
 9. DETR-R50 (91 classes, float32) trains 8 batches of 16 at 384x384
    through ``make_detr_trainer(...).fit``: 2 optimizer updates.
-10. RAFT and RAFT-small in float32 (TF32 off) at bs1 368x496, 12
+10. RAFT's correlation lookup kernel (``csrc/corr_lookup.cu``) against
+    its plain version ``corr_lookup_torch`` on the card, at the shapes and
+    dtype pairs RAFT's paths give it (LOOKUP_CASES): the serving cell's
+    bf16 pyramid into bf16 at 8 Sintel pairs, radius 4; a float32 pyramid
+    into float32 and into bf16; RAFT-small at 368x496, radius 3; far
+    outside the map. Each is timed (CUDA graphs, eager launches, the
+    plain version eager) beside its bound by bytes, the output counted in
+    its dtype and, as the benchmark's yardstick counts it, in float32.
+    From here on every RAFT path on the card runs under
+    ``lookup_launches``: the kernel's launches, counted from 0 just before
+    the path, must equal RAFT's lookups (``CorrPyramid.lookups``) just
+    after it, or, where an exported program calls the operator itself,
+    the steps it runs; the launches by path go into the kernel's entry.
+    Then RAFT and RAFT-small in float32 (TF32 off) at bs1 368x496, 12
     iterations: the card against the same model on the CPU, on the serving
     path (``only_last``) and the last flow of the all-iterations path; the
     bfloat16 RAFT against the float32 one on the card (printed).
@@ -80,7 +93,8 @@
     ``Frame`` -> ``norm_minmax_sym`` -> ``batch_list`` -> ``Padder`` ->
     RAFT -> ``unpad`` -> ``inference`` (a ``Flow`` per pair); latency and
     syncs. Then ``commands.eval_on_sintel --sample --limit_samples 2`` on
-    the card. RAFT runs no kernel of the port.
+    the card. RAFT's one kernel of the port is the correlation lookup
+    (``csrc/corr_lookup.cu``).
 13. Panoptic: the head on DETR-R50 (``DetrPanoptic()``, 100 queries) and on
     Deformable-DETR-R50 without refinement (300 queries), 250 classes,
     random weights. DETR-R50 panoptic in float32 at bs1 on a padded 384x512
@@ -202,9 +216,9 @@
     images/s after the first batch at each padded size, those batches' ms
     alone, data ms a batch); a ``FromDirectoryDataset`` request of the
     fixture folder through the Frame path (12 launches).
-20. The flow datasets on disk (``flow_disk_phase``; RAFT runs no kernel of
-    the port, both counts read around the path and 0): FlyingChairs2 (60
-    train and 10 val pairs at its published 384x512, smooth seeded flows,
+20. The flow datasets on disk (``flow_disk_phase``; RAFT runs no MSDA or
+    Hungarian launch, both counts read around the path and 0): FlyingChairs2
+    (60 train and 10 val pairs at its published 384x512, smooth seeded flows,
     occlusion PNGs) and Sintel (2 scenes x 6 frames at 436x1024, clean
     pass, ``.flo`` and occlusions) written by ``utils/flow_fixture.py``
     into a temporary root that the dataset config names; ``train_on_chairs
@@ -402,12 +416,30 @@ GATE_BATCH = 2
 GATE_GRAD_TOL, GATE_OFFSETS_L2_TOL, GATE_REPLAY_TOL = 1e-2, 1e-2, 1e-5
 # DETR-R50 training, short: 8 batches of 16 at 384 x 384, accumulate 4
 DETR_TRAIN_BATCH, DETR_TRAIN_SIZE, DETR_TRAIN_BATCHES = 16, (384, 384), 8
-KERNEL_SOURCES = ("ms_deform_attn", "hungarian")
+KERNEL_SOURCES = ("ms_deform_attn", "hungarian", "corr_lookup")
 # RAFT (hidden 128, context 128, fdim 256, 4 levels, radius 4) at
 # bench_raft's configuration (bench.py:129-143): batch 2, 368x496, bfloat16,
 # 12 iterations, only_last; the Frame path takes Sintel-sized frames
 RAFT_BATCH, RAFT_HW, RAFT_ITERS = 2, (368, 496), 12
 SINTEL_HW = (436, 1024)
+# RAFT's lookup at its callers' shapes (corr_lookup_phase): name -> (pairs,
+# query map at 1/8, radius, pyramid dtype, output dtype, the coordinates'
+# range past the map). The serving cell's call (8 Sintel pairs padded to
+# 440x1024), the all-flows path's float32 pyramid into float32 and into
+# bf16, RAFT-small at 368x496 (a 5x7 level under its 7x7 window), and
+# centroids far outside the map
+LOOKUP_CASES = {
+    "sintel_b8_bf16": (8, (55, 128), 4, torch.bfloat16, torch.bfloat16, 24.0),
+    "sintel_b8_fp32": (8, (55, 128), 4, torch.float32, torch.float32, 24.0),
+    "sintel_b8_fp32_into_bf16": (8, (55, 128), 4, torch.float32,
+                                 torch.bfloat16, 24.0),
+    "small_368x496_bf16": (2, (46, 62), 3, torch.bfloat16, torch.bfloat16,
+                           12.0),
+    "small_368x496_fp32": (2, (46, 62), 3, torch.float32, torch.float32,
+                           12.0),
+    "far_outside_fp32": (2, (46, 62), 4, torch.float32, torch.float32, 400.0),
+}
+LOOKUP_HEADLINE = "sintel_b8_bf16"
 # panoptic: the head on DETR-R50 (100 queries) and on Deformable-DETR-R50
 # without refinement (300 queries, as eval_on_coco builds it), 250 classes,
 # bfloat16 at 640x640, DETR at batch 8 and Deformable at batch 4; the fp32
@@ -1721,6 +1753,144 @@ def detr_train_phase(device):
                 launches=sum(c[2] for _, c, _, _ in per_batch))
 
 
+def lookup_inputs(B, hw, radius, pyramid_dtype, past, device, seed=0):
+    """A pyramid over the volume of two random 256-channel feature maps of
+    ``hw`` (RAFT's fnet width) and coordinates moved by a uniform flow in
+    [-past, past] (at 1/8), channels-last as RAFT keeps them."""
+    from aloception_tpu_torch.ops.correlation import (CorrPyramid,
+                                                      corr_pyramid,
+                                                      corr_volume)
+    g = torch.Generator(device=device).manual_seed(seed)
+    f1, f2 = (torch.randn(B, 256, *hw, generator=g, device=device)
+              for _ in range(2))
+    pyramid = CorrPyramid([lvl.to(pyramid_dtype) for lvl in
+                           corr_pyramid(corr_volume(f1, f2), 4)])
+    ys, xs = torch.meshgrid(*(torch.arange(n, device=device) for n in hw),
+                            indexing="ij")
+    flow = (torch.rand(B, 2, *hw, generator=g, device=device) * 2 - 1) * past
+    coords = (torch.stack([xs, ys]).float() + flow).contiguous(
+        memory_format=torch.channels_last)
+    return pyramid, coords
+
+
+def lookup_bytes(pyramid, coords, radius, dtype, out_bytes=None):
+    """The least bytes of one lookup: each output written once in
+    ``dtype`` (``out_bytes`` a value where given: 4 is the benchmark's
+    yardstick, ``raft_counting.lookup_bytes``), and for each query and
+    level the (2r+2)^2 pyramid values that its window's corners touch,
+    read once in the pyramid's dtype, at most the level's size."""
+    B, _, H, W = coords.shape
+    d = 2 * radius + 1
+    out_item = out_bytes or torch.empty((), dtype=dtype).element_size()
+    touched = sum(min((d + 1) ** 2, h * w) for h, w in pyramid.sizes)
+    return B * H * W * (len(pyramid.sizes) * d * d * out_item
+                        + touched * pyramid.flat.element_size())
+
+
+def _lookup_gate(got, want, tag):
+    """``got`` against the plain version's float32 ``want``: a float32
+    output within the order of a float32 sum of four products, 1e-5 of
+    max(1, max|want|); a bfloat16 output one rounding of that sum further,
+    one bfloat16 step (2^-7 of each element's magnitude). Returns
+    max|got - want|."""
+    want = want.float()
+    diff = (got.float() - want).abs()
+    bound = 1e-5 * max(1.0, want.abs().max().item()) + (
+        2.0 ** -7 * want.abs() if got.dtype == torch.bfloat16 else 0.0)
+    if not (diff <= bound).all():
+        raise AssertionError(f"corr_lookup {tag}: the kernel disagrees with "
+                             f"the plain version by {diff.max().item()}")
+    return diff.max().item()
+
+
+def corr_lookup_phase(device):
+    """The lookup kernel at each of LOOKUP_CASES: held against the plain
+    version on the inputs it is timed on (``_lookup_gate``), one launch a
+    call, channels-last strides; its device ms a call by CUDA graphs, its
+    eager launches' ms, the plain version's eager ms (it copies its
+    constants from the host, which a graph cannot capture) with the cast
+    to the output's dtype that the model made before the kernel, and the
+    bound by bytes at HBM_BYTES_PER_S, the output counted in its dtype
+    (``bound_ms``) and in float32 (``yardstick_bound_ms``). Returns
+    {case: numbers}."""
+    from aloception_tpu_torch.ops.correlation import corr_lookup_torch
+    from aloception_tpu_torch.ops.cuda import corr_lookup_cuda
+
+    out = {}
+    for name, (B, hw, radius, pdt, odt, past) in LOOKUP_CASES.items():
+        pyramid, coords = lookup_inputs(B, hw, radius, pdt, past, device)
+
+        def kernel():
+            return pyramid.lookup(coords, radius, odt)
+
+        def plain():
+            return corr_lookup_torch(pyramid.flat, pyramid.sizes, coords,
+                                     radius).to(odt)
+
+        before = corr_lookup_cuda.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        if corr_lookup_cuda.launches != before + 1 or got.dtype != odt \
+                or not got.is_contiguous(memory_format=torch.channels_last):
+            raise AssertionError(
+                f"corr_lookup {name}: "
+                f"{corr_lookup_cuda.launches - before} launches, "
+                f"{got.dtype}, strides {got.stride()}")
+        err = _lookup_gate(got, corr_lookup_torch(
+            pyramid.flat, pyramid.sizes, coords, radius), name)
+        del got
+        nbytes = lookup_bytes(pyramid, coords, radius, odt)
+        row = dict(B=B, hw8=list(hw), radius=radius, pyramid=str(pdt)[6:],
+                   out=str(odt)[6:], max_abs_err=err,
+                   ms=graph_ms(kernel), eager_ms=cuda_ms(kernel),
+                   plain_ms=cuda_ms(plain, iters=5, warmup=1),
+                   bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   bound_by="bytes",
+                   yardstick_bound_ms=lookup_bytes(
+                       pyramid, coords, radius, odt, out_bytes=4)
+                   / HBM_BYTES_PER_S * 1e3)
+        print(f"corr_lookup {name}: B={B} {hw} r{radius} {row['pyramid']} "
+              f"-> {row['out']}: max|kernel-plain| {err:.3e}; kernel "
+              f"{row['ms']:.4f} ms (graph) {row['eager_ms']:.4f} ms (eager),"
+              f" plain {row['plain_ms']:.4f} ms; bound {row['bound_ms']:.4f}"
+              f" ms by bytes ({nbytes / 1e6:.1f} MB), "
+              f"{row['bound_ms'] / row['ms']:.1%} of it; "
+              f"{row['yardstick_bound_ms'] / row['ms']:.1%} of the "
+              f"yardstick's {row['yardstick_bound_ms']:.4f} ms (a float32 "
+              f"output)")
+        out[name] = row
+        del pyramid, coords
+        torch.cuda.empty_cache()
+    return out
+
+
+# the lookup kernel's launches on each RAFT path of the run
+# (``lookup_launches``)
+LOOKUP_LAUNCHES = {}
+
+
+@contextlib.contextmanager
+def lookup_launches(path, package_steps=None):
+    """Counts RAFT's lookups (``CorrPyramid.lookups``) and the lookup
+    kernel's launches (``corr_lookup_cuda.launches``) from 0 over the
+    block, and adds the launches, if any, to LOOKUP_LAUNCHES[path]. They
+    must be equal: every lookup on the card launches the kernel. Where the block
+    runs an exported program, whose compiled code calls the operator with
+    no ``CorrPyramid.lookup``, the launches must be ``package_steps``."""
+    from aloception_tpu_torch.ops.correlation import CorrPyramid
+    from aloception_tpu_torch.ops.cuda import corr_lookup_cuda
+    CorrPyramid.lookups = corr_lookup_cuda.launches = 0
+    yield
+    torch.cuda.synchronize()
+    lookups, launches = CorrPyramid.lookups, corr_lookup_cuda.launches
+    want = lookups if package_steps is None else package_steps
+    if launches != want:
+        raise AssertionError(f"RAFT path {path}: {launches} lookup kernel "
+                             f"launches for {want} lookups")
+    if launches:
+        LOOKUP_LAUNCHES[path] = LOOKUP_LAUNCHES.get(path, 0) + launches
+
+
 def raft_parity_phase(device):
     """RAFT and RAFT-small in float32 (TF32 off), bs1 368x496, 12
     iterations: the card against the same model on the CPU, the serving
@@ -1742,7 +1912,9 @@ def raft_parity_phase(device):
         for path in ("only_last", "list"):
             kw = dict(iters=RAFT_ITERS, only_last=path == "only_last")
             with torch.inference_mode():
-                want, got = cpu_model(f1, f2, **kw), gpu_model(d1, d2, **kw)
+                want = cpu_model(f1, f2, **kw)
+                with lookup_launches("parity"):
+                    got = gpu_model(d1, d2, **kw)
             if path == "list":
                 if len(got) != RAFT_ITERS:
                     raise AssertionError(f"{len(got)} flows for "
@@ -1760,7 +1932,7 @@ def raft_parity_phase(device):
         if name == "raft":
             m16 = raft(torch.bfloat16, device=device)
             m16.load_state_dict(cpu_model.state_dict())
-            with torch.inference_mode():
+            with torch.inference_mode(), lookup_launches("parity"):
                 a = m16(d1, d2, iters=RAFT_ITERS, only_last=True)
                 b = gpu_model(d1, d2, iters=RAFT_ITERS, only_last=True)
             if not a.isfinite().all():
@@ -2658,7 +2830,8 @@ def raft_train_gate_phase(device):
                  if n.endswith(("running_mean", "running_var"))}
         return ({k: v.item() for k, v in metrics.items()}, grads, None), stats
 
-    got, got_stats = step(gpu_model, device)
+    with lookup_launches("train_gate"):
+        got, got_stats = step(gpu_model, device)
     want, want_stats = step(cpu_model, torch.device("cpu"))
     # gradients against the model's largest: at init the encoders' are
     # 1e-3 of it, and through 12 recurrent steps float32 holds them to a few
@@ -2805,10 +2978,12 @@ def train_commands_phase():
             raise AssertionError(f"train_on_coco panoptic_deformable: msda "
                                  f"{msda}, backward {backward}")
         pq = trainer.last_val_metrics
-        chairs = train_on_chairs.main(["--sample", "--max_steps", "4",
-                                       "--log_dir", log_dir])
-        epe = eval_on_sintel.main(["--sample", "--ckpt_dir",
-                                   chairs.ckpt_dir, "--limit_samples", "2"])
+        with lookup_launches("train_commands"):
+            chairs = train_on_chairs.main(["--sample", "--max_steps", "4",
+                                           "--log_dir", log_dir])
+            epe = eval_on_sintel.main(["--sample", "--ckpt_dir",
+                                       chairs.ckpt_dir, "--limit_samples",
+                                       "2"])
         if not (chairs.global_step == 4 and math.isfinite(epe)):
             raise AssertionError(f"train_on_chairs {chairs.global_step} "
                                  f"steps, eval EPE {epe}")
@@ -3166,13 +3341,13 @@ def bf16_raft_cell(device, fp32):
     the cnet's BatchNorm statistics in float32, through
     ``make_raft_trainer(dtype=torch.bfloat16).fit`` at raft_train_phase's
     configuration (bs10 368x496, 12 iterations, OneCycle): a warm-up and
-    RAFT_TRAIN_STEPS timed steps, no kernel launch, one sync a batch; the
-    profile; the two slow convolutions in bf16 and fp32; the loss on the
-    batch's statistics (``batch_stats_loss``) over RAFT_OVERFIT_STEPS on
-    one batch, reported and not held: in bf16 that batch's train loss jumps
-    from ~17 to 40-57 and back within the first steps (fp32 falls
-    smoothly), and its eval-mode loss, on the running statistics, rose in
-    a card run (17.82 -> 21.94)."""
+    RAFT_TRAIN_STEPS timed steps, no MSDA or Hungarian launch, one sync a
+    batch; the profile; the two slow convolutions in bf16 and fp32; the
+    loss on the batch's statistics (``batch_stats_loss``) over
+    RAFT_OVERFIT_STEPS on one batch, reported and not held: in bf16 that
+    batch's train loss jumps from ~17 to 40-57 and back within the first
+    steps (fp32 falls smoothly), and its eval-mode loss, on the running
+    statistics, rose in a card run (17.82 -> 21.94)."""
     import tempfile
     from aloception_tpu_torch.models.raft import raft
     from aloception_tpu_torch.train import Data2RAFT, make_raft_trainer
@@ -3624,6 +3799,8 @@ def tiny_export_phase(device):
     image = torch.randn(1, *TINY_EXPORT_HW, 3, device=device, generator=g)
     mask = torch.zeros(1, *TINY_EXPORT_HW, device=device)
     out = {}
+    # the exported program calls the lookup operator once a step
+    steps = {"raft_tiny": TINY_RAFT_ITERS, "panoptic_tiny": 0}
     for name, exporter, inputs in (
             ("raft_tiny", RAFTExporter(raft, input_shape=TINY_EXPORT_HW,
                                        iters=TINY_RAFT_ITERS), frames),
@@ -3635,7 +3812,10 @@ def tiny_export_phase(device):
         program, module, _ = exporter.export_program()
         export_s = time.perf_counter() - t0
         with torch.inference_mode():
-            got, want = program.module()(*inputs), module(*inputs)
+            with lookup_launches("export_program", steps[name]):
+                got = program.module()(*inputs)
+            with lookup_launches("export_eager"):
+                want = module(*inputs)
         if isinstance(want, torch.Tensor):
             got, want = {"flow": got}, {"flow": want}
         out[name] = dict(export_s=export_s,
@@ -3735,8 +3915,9 @@ def full_export_phase(device, ahead=None):
     pred_logits, pred_boxes and pred_masks. Each at 1e-3 * max(1,
     max|ref|), with its compile seconds, package MiB and device peak (from
     the compiling process) and ``latency_pair``. The models are built as
-    the compiling process built them, from the same seeds. Neither runs a
-    kernel of the port."""
+    the compiling process built them, from the same seeds. The RAFT package
+    launches the lookup kernel once a step (its compiled code calls the
+    operator); the panoptic one runs no kernel of the port."""
     from aloception_tpu_torch.export import (Executor, PanopticExporter,
                                              RAFTExporter)
     from aloception_tpu_torch.models.raft import raft
@@ -3760,13 +3941,16 @@ def full_export_phase(device, ahead=None):
     frames = tuple(torch.rand(1, 3, *RAFT_HW, device=device, generator=g)
                    * 2 - 1 for _ in range(2))
     with torch.inference_mode():
-        got = {"flow": executor(*frames)}
-        want = {"flow": eager(*frames)}
-        torch.backends.cudnn.benchmark = True
-        try:
-            searched = {"flow": eager(*frames)}
-        finally:
-            torch.backends.cudnn.benchmark = False
+        # the package calls the lookup operator once a step
+        with lookup_launches("export_package", RAFT_ITERS):
+            got = {"flow": executor(*frames)}
+        with lookup_launches("export_eager"):
+            want = {"flow": eager(*frames)}
+            torch.backends.cudnn.benchmark = True
+            try:
+                searched = {"flow": eager(*frames)}
+            finally:
+                torch.backends.cudnn.benchmark = False
     floor = _export_gate(searched, want, "raft eager with cuDNN's search",
                          tol=float("inf"))
     err = _export_gate(got, want, "raft package")
@@ -4963,16 +5147,19 @@ def sintel_eval_phase(ckpt_dir):
             mock.patch.object(SintelFlowDataset, "stream_loader",
                               timed_stream):
         t0 = time.perf_counter()
-        epe = eval_on_sintel.main(["--limit_samples", str(SINTEL_EVAL_PAIRS),
-                                   "--ckpt_dir", ckpt_dir])
+        with lookup_launches("eval_on_sintel_files"):
+            epe = eval_on_sintel.main(["--limit_samples",
+                                       str(SINTEL_EVAL_PAIRS),
+                                       "--ckpt_dir", ckpt_dir])
         end = time.perf_counter()
     n = min(SINTEL_EVAL_PAIRS, SINTEL_SCENES * (SINTEL_FRAMES - 1))
     out = dict(epe=epe, pairs=n, pairs_per_s=(n - 1) / (end - marks["first"]),
                first_pair_s=marks["first"] - t0,
                decode_ms=sum(decode) / len(decode) * 1e3,
                wait_ms=sum(waits[:n]) / n * 1e3)
-    card = eval_on_sintel.main(["--limit_samples", str(SINTEL_CPU_PAIRS),
-                                "--ckpt_dir", ckpt_dir])
+    with lookup_launches("eval_on_sintel_files"):
+        card = eval_on_sintel.main(["--limit_samples", str(SINTEL_CPU_PAIRS),
+                                    "--ckpt_dir", ckpt_dir])
     t = time.perf_counter()
     cpu = eval_on_sintel.main(["--cpu", "--limit_samples",
                                str(SINTEL_CPU_PAIRS), "--ckpt_dir", ckpt_dir])
@@ -4997,8 +5184,8 @@ def flow_disk_phase(device):
     """FlyingChairs2 and Sintel directories at their published sizes,
     written from seeds (``utils/flow_fixture.py``) into a temporary root
     that the dataset config names; ``train_on_chairs`` and
-    ``eval_on_sintel`` from those files. RAFT runs no kernel of the port:
-    both counts are read around the path and must stay 0."""
+    ``eval_on_sintel`` from those files. RAFT runs no MSDA or Hungarian
+    launch: both counts are read around the path and must stay 0."""
     import tempfile
     from aloception_tpu_torch.alodataset import base_dataset
     from aloception_tpu_torch.utils import flow_fixture as ff
@@ -5016,8 +5203,9 @@ def flow_disk_phase(device):
             json.dump({"FlyingChairs2": chairs, "Sintel": sintel}, f)
         with mock.patch.object(base_dataset, "CONFIG_PATH", config):
             t = time.perf_counter()
-            trainer, out["train"] = chairs_train_phase(
-                device, os.path.join(root, "expe"))
+            with lookup_launches("train_on_chairs"):
+                trainer, out["train"] = chairs_train_phase(
+                    device, os.path.join(root, "expe"))
             out["train"]["kernel_launches"] = _kernel_counts("train_on_chairs")
             out["train"]["seconds"] = time.perf_counter() - t
             ckpt_dir = trainer.ckpt_dir
@@ -5075,7 +5263,8 @@ def kitti_sflow_step(device):
     for item in items:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        epe, padded = epe_of(model, item["left"], device)
+        with lookup_launches("kitti_scene_flow"):
+            epe, padded = epe_of(model, item["left"], device)
         ms.append((time.perf_counter() - t) * 1e3)
         card.append(epe)
     cpu = [epe_of(cpu_model, item["left"], "cpu")[0]
@@ -6251,7 +6440,8 @@ def parallel_phase(device):
     bf16_unmoved = _bf16_errors(dict(one_bf16, state=start), one_bf16,
                                 start)
     del again_bf16, control
-    one_raft = parallel_raft_run(device)
+    with lookup_launches("parallel_one_process"):
+        one_raft = parallel_raft_run(device)
     torch.cuda.empty_cache()
     for tag, run in (("fp32", one), ("bf16", one_bf16)):
         print(f"parallel: one process, Deformable-DETR-R50-refine {tag} bs2 "
@@ -6711,7 +6901,8 @@ def tutorials_phase():
             mod = importlib.import_module(name)
             _reset_counts()
             t0 = time.perf_counter()
-            with recorded_assignments() as calls:
+            with recorded_assignments() as calls, \
+                    lookup_launches(f"tutorial_{num}"):
                 if num == "10" and torch.cuda.device_count() < 8:
                     try:
                         mod.main()
@@ -6784,6 +6975,9 @@ def main():
     for key, (regs, st, ld) in sorted(report.items()):
         flag = "  SPILLS" if st or ld else ""
         print(f"  {key}: {regs} registers, spills {st}/{ld}{flag}")
+    for line in build_log("corr_lookup").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  corr_lookup ptxas: {line.strip()}")
 
     seconds = {}
 
@@ -6809,12 +7003,19 @@ def main():
     torch.cuda.empty_cache()
     detr_train = phase("detr_train", detr_train_phase, device)
     torch.cuda.empty_cache()
+    lookup = phase("corr_lookup", corr_lookup_phase, device)
     raft_errs = phase("raft_parity", raft_parity_phase, device)
-    raft_model, raft_serve = phase("raft_serving", raft_serving_phase,
-                                   device)
-    raft_frame = phase("raft_frame", raft_frame_phase, raft_model, device)
+    # the phases wholly on the card count their lookups here; the others
+    # around their card runs
+    with lookup_launches("serving"):
+        raft_model, raft_serve = phase("raft_serving", raft_serving_phase,
+                                       device)
+    with lookup_launches("frame"):
+        raft_frame = phase("raft_frame", raft_frame_phase, raft_model,
+                           device)
     del raft_model
-    raft_epe = phase("raft_eval", raft_eval_phase)
+    with lookup_launches("eval_on_sintel"):
+        raft_epe = phase("raft_eval", raft_eval_phase)
     torch.cuda.empty_cache()
     panoptic = dict(parity=phase("panoptic_parity", panoptic_parity_phase,
                                  device),
@@ -6839,12 +7040,14 @@ def main():
         torch.cuda.empty_cache()
     raft_train = dict(gate=phase("raft_train_gate", raft_train_gate_phase,
                                  device))
-    raft_train.update(phase("raft_train", raft_train_phase, device))
+    with lookup_launches("train"):
+        raft_train.update(phase("raft_train", raft_train_phase, device))
     torch.cuda.empty_cache()
     commands = phase("train_commands", train_commands_phase)
     torch.cuda.empty_cache()
-    bf16 = phase("bf16_train", bf16_train_phase, device,
-                 dict(deformable=train, raft=raft_train))
+    with lookup_launches("bf16_train"):
+        bf16 = phase("bf16_train", bf16_train_phase, device,
+                     dict(deformable=train, raft=raft_train))
     bf16_msda = {"bf16_train": bf16["deformable"]["launches"][0],
                  "bf16_train_command": sum(
                      c["msda_launches"] for c in bf16["commands"].values())}
@@ -7006,6 +7209,30 @@ def main():
         # no PyTorch call solves an assignment
         "library_ms": None,
         "timed": {hungarian_tag(k): v for k, v in hung.items()},
+    }, {
+        "name": "corr_lookup",
+        "route": "cuda",
+        "source": "aloception_tpu_torch/csrc/corr_lookup.cu",
+        # none: the JAX package's lookup is XLA (a gather, and a one-hot
+        # matmul on its main path); its Pallas RAFT kernel was deleted
+        "replaces": None,
+        "launches": sum(LOOKUP_LAUNCHES.values()),
+        # each equal to RAFT's lookups on its path, or to the steps an
+        # exported program ran (``lookup_launches``)
+        "launches_by_path": dict(LOOKUP_LAUNCHES),
+        "max_abs_err": max(v["max_abs_err"] for v in lookup.values()
+                           if v["out"] == "float32"),
+        "max_abs_err_bf16": max(v["max_abs_err"] for v in lookup.values()
+                                if v["out"] == "bfloat16"),
+        "ms": lookup[LOOKUP_HEADLINE]["ms"],
+        "ms_eager": lookup[LOOKUP_HEADLINE]["eager_ms"],
+        "plain_ms": lookup[LOOKUP_HEADLINE]["plain_ms"],
+        "bound_ms": lookup[LOOKUP_HEADLINE]["bound_ms"],
+        "bound_by": "bytes",
+        "yardstick_bound_ms": lookup[LOOKUP_HEADLINE]["yardstick_bound_ms"],
+        # no single PyTorch call computes the windowed lookup
+        "library_ms": None,
+        "timed": lookup,
     }], "train": {"deformable_step_ms": train["step_ms"],
                   "deformable_frames_ms": train["frames_ms"],
                   "detr_frames_ms": detr_train["frames_ms"],
@@ -7014,7 +7241,7 @@ def main():
                   "detr_step_ms": detr_train["step_ms"],
                   "panoptic": panoptic_train, "raft": raft_train,
                   "commands": commands, "bf16": bf16},
-        # RAFT runs no kernel of the port: cuDNN, cuBLAS and PyTorch ops
+        # RAFT: cuDNN, cuBLAS, PyTorch ops and the lookup kernel
         "raft": {"parity": raft_errs,
                  "regions": raft_serve.pop("regions"), **raft_serve,
                  "frame_latency_s": raft_frame["latency_s"],
@@ -7023,7 +7250,8 @@ def main():
         # the panoptic head runs no kernel of the port; its Deformable
         # detector runs the MSDA kernel (launches above)
         "panoptic": panoptic,
-        # AOTInductor packages: the Deformable one calls the MSDA operator
+        # AOTInductor packages: the Deformable one calls the MSDA operator,
+        # the RAFT one the lookup operator
         "export": export,
         # aloscene's 3-D geometry, the 3D AP and the depth metrics: torch
         # ops, no kernel of the port
@@ -7031,8 +7259,9 @@ def main():
         # COCO on disk: the decode gate, multi-scale training and eval, the
         # FromDirectoryDataset request (the kernel entries carry launches)
         "coco_disk": {k: v for k, v in coco.items() if k != "bucket_errs"},
-        # the flow, KITTI and Waymo datasets on disk: no kernel of the port
-        # (both counts read around each path and 0)
+        # the flow, KITTI and Waymo datasets on disk: no MSDA or Hungarian
+        # launch (both counts read around each path and 0); RAFT's lookup
+        # launches are in the corr_lookup entry
         "flow_disk": flow_disk, "kitti_waymo_disk": kitti_waymo,
         # MOT17, CrowdHuman and WoodScape on disk, the views and the
         # renderer: the CrowdHuman training and the MOT17 Frame path run

@@ -1,5 +1,6 @@
 """The export subsystem on the card: a Deformable-DETR-R50 package launches
-the hand-written MSDA kernel from its compiled code. Imports no JAX, so it
+the hand-written MSDA kernel from its compiled code, a RAFT package the
+hand-written correlation lookup kernel. Imports no JAX, so it
 runs where the JAX package cannot be imported:
 ``python -m pytest --noconftest tests/test_torch_export_card.py -m cuda``."""
 
@@ -40,3 +41,31 @@ def test_package_launches_the_kernel_on_card(cuda, tmp_path):
     for k in want:
         ref = max(1.0, want[k].abs().max().item())
         assert (got[k] - want[k]).abs().max().item() <= 1e-3 * ref
+
+
+@pytest.mark.cuda
+def test_raft_package_launches_the_lookup_kernel_on_card(cuda, tmp_path):
+    """A RAFT package (``only_last``, 3 steps, narrow hidden and context
+    widths, the standard 4 levels of radius 4) compiled for the card calls
+    the operator ``corr_lookup`` once a step, which launches the
+    hand-written lookup kernel, and agrees with eager."""
+    from aloception_tpu_torch.models.raft import RAFTBase, built
+    from aloception_tpu_torch.ops.cuda import corr_lookup_cuda
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = built(RAFTBase(hidden_dim=32, context_dim=32, device=cuda),
+                  torch.float32)
+    exporter = texport.RAFTExporter(model, input_shape=(64, 96), iters=3)
+    artifact = exporter.export_engine(path=str(tmp_path / "raft.pt2"))
+    executor = texport.Executor(artifact)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    f1, f2 = (torch.rand(1, 3, 64, 96, generator=g, device=cuda) * 2 - 1
+              for _ in range(2))
+    before = corr_lookup_cuda.launches
+    with torch.no_grad():
+        got = executor(f1, f2)
+        torch.cuda.synchronize()
+        assert corr_lookup_cuda.launches == before + 3
+        want = exporter.build_fn()(f1, f2)
+    ref = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= 1e-3 * ref
